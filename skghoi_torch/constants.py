@@ -1,0 +1,47 @@
+"""Behavioral constants of the SCG HOI network, pinned from the reference.
+
+The port's own copy of the values its modules use; each cites the reference
+file:line (relative to the upstream SKGHOI checkout) that defines it.
+"""
+
+# Dataset class counts (hicodet/hicodet.py:72-74)
+HICO_NUM_OBJECTS = 80
+HICO_NUM_VERBS = 117
+HICO_HUMAN_IDX = 49
+
+# Detection filtering (heads/adamixer_transH_spatial_r50_head.py:66-71,119-142)
+BOX_SCORE_THRESH = 0.2
+BOX_NMS_THRESH = 0.5
+MAX_HUMAN = 15
+MAX_OBJECT = 15
+MAX_BOXES = MAX_HUMAN + MAX_OBJECT          # 30 slots, humans packed first
+
+# Image transform (models/adamixer_transH_spatial_r50_models.py:134,193-198)
+IMAGE_MEAN = (0.485, 0.456, 0.406)
+IMAGE_STD = (0.229, 0.224, 0.225)
+CANVAS_LANDSCAPE = (832, 1344)
+
+# Model dimensions (heads/...head.py:635-701; models/...models.py:115-177)
+FPN_CHANNELS = 256
+FPN_STRIDES = (4, 8, 16, 32)
+ROI_POOL_SIZE = 7
+ROI_SAMPLING_RATIO = 2
+NODE_ENCODING_SIZE = 1024
+REPRESENTATION_SIZE = 1024
+MBF_CARDINALITY = 16
+SPATIAL_FEATURE_SIZE = 46                   # ops.py:134-156 (23 features + log)
+SPATIAL_HIDDEN = (128, 256, 1024)           # heads/...head.py:662-669
+NUM_MP_ITERATIONS = 2                        # configures/.../main.py:149
+
+# TransH head (heads/...head.py:685-692; heads/TransH/TransH.py:10-22)
+TRANSH_DIM = 50
+TRANSH_P_NORM = 2
+TRANSH_NORM_FLAG = True
+
+FG_IOU_THRESH = 0.5                          # heads/...head.py:604,711-714
+
+# Prior-score exponent at inference (heads/...head.py:742)
+PRIOR_POWER_EVAL = 2.8
+
+# Spatial-encoding numerical epsilon (ops.py:87)
+SPATIAL_EPS = 1e-10

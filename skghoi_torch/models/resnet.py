@@ -1,0 +1,102 @@
+"""ResNet-50 with frozen BatchNorm, torchvision layout, channels_last.
+
+Mirrors ``skghoi_tpu.models.resnet.ResNet50`` at inference: a plain 7x7/2
+stem (the space-to-depth stem and the ``nn.scan`` tail blocks there are TPU
+compile levers with identical math), BatchNorm that always uses its stored
+statistics, and the C2..C5 outputs at strides 4, 8, 16, 32.  Module names
+follow torchvision's ``resnet50`` so its checkpoints load by name.
+
+Tensors are NCHW in ``torch.channels_last`` memory, which cuDNN runs natively
+and which permutes to a contiguous NHWC view for free.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from skghoi_torch.models.layers import Conv2d
+
+Tensor = torch.Tensor
+
+
+class FrozenBatchNorm(nn.Module):
+    """BatchNorm over stored statistics, folded into one multiply-add.
+
+    The per-channel constants are computed in float32; the activation stays in
+    ``dtype`` (eps 1e-5, as ``skghoi_tpu.models.resnet.FrozenBatchNorm``).
+    """
+
+    def __init__(self, channels: int, eps: float = 1e-5, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.eps = eps
+        self.compute_dtype = dtype
+        self.register_buffer("weight", torch.ones(channels))
+        self.register_buffer("bias", torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def forward(self, x: Tensor) -> Tensor:
+        inv = torch.rsqrt(self.running_var.float() + self.eps) * self.weight.float()
+        shift = self.bias.float() - self.running_mean.float() * inv
+        dt = self.compute_dtype
+        return x.to(dt) * inv.to(dt).view(1, -1, 1, 1) + shift.to(dt).view(1, -1, 1, 1)
+
+
+class Bottleneck(nn.Module):
+    """1x1 -> 3x3 -> 1x1 bottleneck with identity/projection shortcut."""
+
+    def __init__(self, in_channels: int, width: int, stride: int = 1,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        out = width * 4
+        self.conv1 = Conv2d(in_channels, width, 1, bias=False, dtype=dtype)
+        self.bn1 = FrozenBatchNorm(width, dtype=dtype)
+        self.conv2 = Conv2d(width, width, 3, stride=stride, padding=1, bias=False, dtype=dtype)
+        self.bn2 = FrozenBatchNorm(width, dtype=dtype)
+        self.conv3 = Conv2d(width, out, 1, bias=False, dtype=dtype)
+        self.bn3 = FrozenBatchNorm(out, dtype=dtype)
+        self.downsample = None
+        if in_channels != out or stride != 1:
+            self.downsample = nn.Sequential(
+                Conv2d(in_channels, out, 1, stride=stride, bias=False, dtype=dtype),
+                FrozenBatchNorm(out, dtype=dtype),
+            )
+
+    def forward(self, x: Tensor) -> Tensor:
+        y = F.relu(self.bn1(self.conv1(x)))
+        y = F.relu(self.bn2(self.conv2(y)))
+        y = self.bn3(self.conv3(y))
+        residual = x if self.downsample is None else self.downsample(x)
+        return F.relu(y + residual)
+
+
+class ResNet50(nn.Module):
+    """Returns C2..C5 (strides 4, 8, 16, 32) as NCHW channels_last tensors."""
+
+    def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3),
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.compute_dtype = dtype
+        self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False, dtype=dtype)
+        self.bn1 = FrozenBatchNorm(64, dtype=dtype)
+        in_ch = 64
+        for stage, (blocks, width) in enumerate(zip(stage_sizes, (64, 128, 256, 512))):
+            layer = []
+            for b in range(blocks):
+                layer.append(Bottleneck(in_ch, width, 2 if (b == 0 and stage > 0) else 1, dtype))
+                in_ch = width * 4
+            setattr(self, f"layer{stage + 1}", nn.Sequential(*layer))
+
+    def forward(self, x: Tensor) -> Tuple[Tensor, ...]:
+        x = x.to(self.compute_dtype).contiguous(memory_format=torch.channels_last)
+        x = F.relu(self.bn1(self.conv1(x)))
+        x = F.max_pool2d(x, 3, stride=2, padding=1)
+        outputs = []
+        for layer in (self.layer1, self.layer2, self.layer3, self.layer4):
+            x = layer(x)
+            outputs.append(x)
+        return tuple(outputs)

@@ -1,0 +1,103 @@
+"""Multi-scale RoIAlign, plain PyTorch gather formulation.
+
+Mirrors ``skghoi_tpu.ops.roi_align`` batched over images: torchvision
+``roi_align`` with ``aligned=False`` (the reference's ``MultiScaleRoIAlign``,
+``models/adamixer_transH_spatial_r50_models.py:158-162``):
+
+  * RoI corners scaled by ``1/stride``; width/height at least 1 cell,
+  * each of the 7x7 bins averages a ``sampling_ratio x sampling_ratio`` grid
+    of samples at ``(i + 0.5)/sr`` of the bin,
+  * bilinear interpolation is 0 outside ``[-1, size]`` and clamps to the edge
+    inside,
+  * FPN level per box by torchvision's ``LevelMapper`` (224, 4, [2, 5]).
+
+This is the plain version of the CUDA kernel in ``roi_align_cuda``: the CPU
+path, and what the kernel is held against on the card.  Maps are NHWC.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from skghoi_torch.constants import FPN_STRIDES, ROI_POOL_SIZE, ROI_SAMPLING_RATIO
+
+Tensor = torch.Tensor
+
+
+def fpn_level_assignment(boxes: Tensor, canonical_scale: int = 224, canonical_level: int = 4,
+                         k_min: int = 2, k_max: int = 5, eps: float = 1e-6) -> Tensor:
+    """torchvision ``LevelMapper``: ``[..., 4]`` boxes -> int32 level in ``[0, k_max-k_min]``."""
+    area = ((boxes[..., 2] - boxes[..., 0]) * (boxes[..., 3] - boxes[..., 1])).clamp_min(0.0)
+    lvl = torch.floor(canonical_level + torch.log2(torch.sqrt(area) / canonical_scale + eps))
+    return (lvl.clamp(k_min, k_max) - k_min).to(torch.int32)
+
+
+def _sample_axis(start: Tensor, roi_len: Tensor, size: int, pooled: int, sr: int):
+    """Sample positions of one axis, ``[B, N] -> [B, N, pooled*sr]``, as
+    (low index, high index, low weight, high weight, out-of-bounds)."""
+    bins = torch.arange(pooled, dtype=torch.float32, device=start.device)
+    off = (torch.arange(sr, dtype=torch.float32, device=start.device) + 0.5) / sr
+    rel = (bins[:, None] + off[None, :]).reshape(-1)  # bin + (i + .5)/sr, flattened
+    pos = start[..., None] + rel * (roi_len / pooled)[..., None]
+    oob = (pos < -1.0) | (pos > size)
+    pos = pos.clamp_min(0.0)
+    low = torch.floor(pos).to(torch.int64).clamp_max(size - 1)
+    pos = pos.clamp_max(size - 1)
+    high = (low + 1).clamp_max(size - 1)
+    frac = pos - low.to(pos.dtype)
+    return low, high, 1.0 - frac, frac, oob
+
+
+def roi_align_level(features: Tensor, boxes: Tensor, stride: int,
+                    output_size: int = ROI_POOL_SIZE,
+                    sampling_ratio: int = ROI_SAMPLING_RATIO) -> Tensor:
+    """RoIAlign ``[B, N, 4]`` boxes over one ``[B, H, W, C]`` level ->
+    ``[B, N, P, P, C]`` float32."""
+    bsz, h, w, _ = features.shape
+    p, sr = output_size, sampling_ratio
+    scale = 1.0 / stride
+    x1 = boxes[..., 0] * scale
+    y1 = boxes[..., 1] * scale
+    roi_w = (boxes[..., 2] * scale - x1).clamp_min(1.0)
+    roi_h = (boxes[..., 3] * scale - y1).clamp_min(1.0)
+    yl, yh, hy, ly, oob_y = _sample_axis(y1, roi_h, h, p, sr)  # [B, N, P*sr]
+    xl, xh, hx, lx, oob_x = _sample_axis(x1, roi_w, w, p, sr)
+
+    n = boxes.shape[1]
+    bidx = torch.arange(bsz, device=boxes.device).view(bsz, 1, 1, 1)
+    f = features.float()
+
+    def corner(yi, xi):  # [B, N, P*sr, P*sr, C]
+        return f[bidx, yi[:, :, :, None], xi[:, :, None, :]]
+
+    wy_l, wy_h = hy[..., :, None, None], ly[..., :, None, None]
+    wx_l, wx_h = hx[..., None, :, None], lx[..., None, :, None]
+    val = (
+        (wy_l * wx_l) * corner(yl, xl)
+        + (wy_l * wx_h) * corner(yl, xh)
+        + (wy_h * wx_l) * corner(yh, xl)
+        + (wy_h * wx_h) * corner(yh, xh)
+    )
+    oob = oob_y[..., :, None] | oob_x[..., None, :]
+    val = torch.where(oob[..., None], torch.zeros((), device=val.device), val)
+    val = val.view(bsz, n, p, sr, p, sr, -1)
+    return val.mean(dim=(3, 5))
+
+
+def multiscale_roi_align(feature_maps: Sequence[Tensor], boxes: Tensor,
+                         strides: Sequence[int] = FPN_STRIDES) -> Tensor:
+    """RoIAlign ``[B, N, 4]`` boxes over four ``[B, H_l, W_l, C]`` maps, finest
+    first -> ``[B, N, 7, 7, C]`` in the maps' dtype.
+
+    Pools every box at every level and keeps the box's assigned level: dense
+    and simple, at four times the work of the kernel.
+    """
+    levels = fpn_level_assignment(boxes)  # [B, N]
+    out = None
+    for l, (fm, stride) in enumerate(zip(feature_maps, strides)):
+        pooled = roi_align_level(fm, boxes, stride)
+        sel = (levels == l)[..., None, None, None]
+        out = torch.where(sel, pooled, torch.zeros((), device=pooled.device) if out is None else out)
+    return out.to(feature_maps[0].dtype)
