@@ -1,16 +1,24 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of the SCG HOI network on one CUDA card.
 
-    python3 chip_smoke.py [--profile DIR]
+    python3 chip_smoke.py [--profile DIR] [--baseline-source OTHER/roi_align.cu]
 
 Phases, each reporting on its own lines; any failure exits non-zero:
 
 1. The card (``nvidia-smi`` name and power limit), and the build of the CUDA
    RoIAlign kernel from ``skghoi_torch/csrc`` into ``skghoi_torch/_build``.
-2. The kernel against its plain PyTorch version on the card: the 832x1344
-   FPN pyramid (C=256, batch 8) in float32 and bfloat16, on the 30 filtered
-   box slots the main path gives it and on edge, degenerate and
-   window-overflow boxes; then both timed with CUDA events.
+2. The kernel against its plain PyTorch version on the card, in float32 and
+   bfloat16, over the 832x1344 FPN pyramid at C=256 (the main path's), 136
+   (a ragged last channel slice) and 64, batch 8: the 30 filtered box slots
+   the main path gives it, edge/degenerate/window-overflow boxes, boxes with
+   the largest distinct sample grid on each level, boxes on every map edge,
+   a batch of padding slots only, B=1, N=1, and 600 random boxes an image
+   (more work items than the kernel plans an order for).  Then timed with
+   CUDA events on the main path's inputs: the kernel alone with a cold L2
+   (successive calls rotate over copies of the pyramid), the same warm, on
+   padding slots only, the call with its level assignment, the eager call
+   and the plain version (``--baseline-source`` times another build of the
+   kernel alone beside this one).
 3. The float32 network on the card against the same network on the CPU
    (64x96, batch 2; TF32 off): scores within 1e-4, filtered boxes and counts
    equal.
@@ -31,11 +39,13 @@ import os
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOPS_PER_S = 67e12   # H100 SXM, outside the tensor cores
+FP32_TOL = 1e-5  # kernel vs plain, float32: 20x the largest error measured (PERF.md)
 CANVAS = (832, 1344)
 BATCH = 8
 REQUESTS = 5  # main-path forward requests (the contract asks for at least 3)
@@ -47,6 +57,20 @@ EDGE_BOXES = [  # tests/test_pallas_roi_align.py: edge, extreme and overflow fix
     [-10.0, -10.0, 390.0, 260.0], [50.0, 50.0, 51.0, 51.0],
     [100.0, 300.0, 1000.0, 400.0], [40.0, 700.0, 1340.0, 760.0], [200.0, 200.0, 400.0, 500.0],
     [0.0, 0.0, 1344.0, 832.0], [-50.0, -40.0, 1400.0, 900.0],
+]
+# The largest distinct sample grid a box can reach on each level (27 cells a
+# side): 28x28 cells on P2, P3 and P4; 26x28 on P5, whose map has 26 rows.
+GRID28_BOXES = [[20.0, 12.0, 128.0, 120.0], [40.0, 24.0, 256.0, 240.0],
+                [80.0, 48.0, 512.0, 480.0], [160.0, 0.0, 1024.0, 864.0]]
+GRID28_SHAPES = [(0, 28, 28), (1, 28, 28), (2, 28, 28), (3, 26, 28)]  # (level, rows, columns)
+MANY_BOXES = 600  # slots an image in the "many" case: more items than the kernel plans for
+MAP_EDGE_BOXES = [  # each edge of the 832x1344 canvas, on every level
+    [0.0, 300.0, 60.0, 360.0], [1284.0, 300.0, 1344.0, 360.0],    # P2 left, right
+    [600.0, 0.0, 660.0, 60.0], [600.0, 772.0, 660.0, 832.0],      # P2 top, bottom
+    [0.0, 0.0, 150.0, 150.0], [1194.0, 682.0, 1344.0, 832.0],     # P3 corners
+    [0.0, 500.0, 300.0, 832.0], [1044.0, 0.0, 1344.0, 300.0],     # P4 corners
+    [672.0, 0.0, 1344.0, 832.0], [0.0, 0.0, 700.0, 832.0],        # P5 halves
+    [1300.0, 790.0, 1360.0, 850.0], [-30.0, -30.0, 20.0, 20.0],   # across the corners
 ]
 
 
@@ -74,39 +98,61 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def graph_ms(fn, iters: int, per_graph: int = 20) -> float:
-    """Device time per call of ``fn``: ``per_graph`` calls captured in one
-    CUDA graph and replayed, so host launch cost is out of the measurement."""
+def graph_ms(calls, iters: int) -> float:
+    """Device time per call of ``calls``: all of them, in order, captured in
+    one CUDA graph and replayed, so host launch cost is out of the measurement."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        fn()  # warm-up off the capture
+        for fn in calls:  # warm-up off the capture
+            fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(per_graph):
+        for fn in calls:
             fn()
-    return cuda_ms(graph.replay, iters) / per_graph
+    return cuda_ms(graph.replay, iters) / len(calls)
+
+
+def sample_cells(boxes, hw):
+    """FPN level of each box of ``[..., 4]`` ``boxes``, and for each level the
+    map rows and columns its 14 samples a side read there (low and high cell,
+    ``[..., 28]`` each), over maps of sizes ``hw`` (four (H, W), finest first)."""
+    from skghoi_torch.ops.roi_align import _sample_axis, fpn_level_assignment
+
+    per_level = []
+    for (h, w), stride in zip(hw, (4, 8, 16, 32)):
+        x1, y1 = boxes[..., 0] / stride, boxes[..., 1] / stride
+        roi_w = (boxes[..., 2] / stride - x1).clamp_min(1.0)
+        roi_h = (boxes[..., 3] / stride - y1).clamp_min(1.0)
+        yl, yh, *_ = _sample_axis(y1, roi_h, h, 7, 2)
+        xl, xh, *_ = _sample_axis(x1, roi_w, w, 7, 2)
+        per_level.append((torch.cat([yl, yh], -1), torch.cat([xl, xh], -1)))
+    return fpn_level_assignment(boxes), per_level
+
+
+def grid_shapes(boxes, hw):
+    """Level, distinct sample rows and distinct sample columns of each box."""
+    levels, per_level = sample_cells(boxes, hw)
+    rows, cols = torch.zeros_like(levels), torch.zeros_like(levels)
+    for l, cells in enumerate(per_level):
+        for dst, idx in zip((rows, cols), cells):
+            srt = idx.sort(-1).values
+            n = 1 + (srt[..., 1:] != srt[..., :-1]).sum(-1)
+            dst.copy_(torch.where(levels == l, n.to(dst.dtype), dst))
+    return levels, rows, cols
 
 
 def roi_bound_ms(maps, boxes):
     """Least time for the kernel's work on these inputs: the larger of its
     bytes (distinct map cells the samples read, the boxes, levels and the
     output) over HBM bandwidth and its float32 operations over peak."""
-    from skghoi_torch.ops.roi_align import _sample_axis, fpn_level_assignment
-
     bsz, n = boxes.shape[:2]
     c, elem = maps[0].shape[-1], maps[0].element_size()
-    levels = fpn_level_assignment(boxes)
+    levels, per_level = sample_cells(boxes, [fm.shape[1:3] for fm in maps])
     cells, base = [], 0
-    for l, (fm, stride) in enumerate(zip(maps, (4, 8, 16, 32))):
+    for l, (fm, (ys, xs)) in enumerate(zip(maps, per_level)):
         h, w = fm.shape[1:3]
-        x1, y1 = boxes[..., 0] / stride, boxes[..., 1] / stride
-        roi_w = (boxes[..., 2] / stride - x1).clamp_min(1.0)
-        roi_h = (boxes[..., 3] / stride - y1).clamp_min(1.0)
-        yl, yh, *_ = _sample_axis(y1, roi_h, h, 7, 2)
-        xl, xh, *_ = _sample_axis(x1, roi_w, w, 7, 2)
-        ys, xs = torch.cat([yl, yh], -1), torch.cat([xl, xh], -1)  # [B, N, 28]
         img = torch.arange(bsz, device=boxes.device)[:, None, None, None]
         ids = base + (img * h + ys[..., :, None]) * w + xs[..., None, :]
         cells.append(ids[levels == l].flatten())
@@ -119,46 +165,129 @@ def roi_bound_ms(maps, boxes):
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations"), touched
 
 
-def phase_kernel(main_boxes):
+def kernel_cases(main_boxes):
+    """(name, batch size, [B, N, 4] boxes) held against the plain version."""
+    dev = main_boxes.device
+
+    def tile(boxes):
+        return torch.tensor([boxes] * BATCH, device=dev)
+
+    grid = tile(GRID28_BOXES)
+    got = tuple(torch.stack(grid_shapes(grid[0], [(CANVAS[0] // s, CANVAS[1] // s)
+                                                  for s in (4, 8, 16, 32)]), -1).tolist())
+    if got != tuple(map(list, GRID28_SHAPES)):
+        raise AssertionError(f"GRID28_BOXES give (level, rows, cols) {got}")
+    g = torch.Generator(device=dev).manual_seed(1)
+    xy = torch.rand(BATCH, MANY_BOXES, 2, generator=g, device=dev) * 1400.0 - 40.0
+    wh = torch.exp(torch.rand(BATCH, MANY_BOXES, 2, generator=g, device=dev) * 7.0)
+    many = torch.cat([xy, xy + wh], -1)
+    return [("main", BATCH, main_boxes), ("edge", BATCH, tile(EDGE_BOXES)),
+            ("grid28", BATCH, grid), ("map_edges", BATCH, tile(MAP_EDGE_BOXES)),
+            ("padding", BATCH, torch.zeros_like(main_boxes)),
+            ("b1n1", 1, main_boxes[:1, :1].contiguous()), ("many", BATCH, many)]
+
+
+def check_kernel(main_boxes):
+    """The kernel against the plain version on every case, for float32 and
+    bfloat16, at C=256 (the main path's), 136 (a ragged last slice) and 64;
+    returns the largest error per dtype on the main path's inputs."""
     from skghoi_torch.ops.roi_align import multiscale_roi_align
     from skghoi_torch.ops.roi_align_cuda import roi_align_cuda
 
-    g = torch.Generator(device="cuda").manual_seed(0)
-    maps32 = [torch.randn(BATCH, CANVAS[0] // s, CANVAS[1] // s, 256, device="cuda", generator=g)
-              for s in (4, 8, 16, 32)]
-    edge = torch.tensor([EDGE_BOXES] * BATCH, device="cuda")
+    cases = kernel_cases(main_boxes)
     errs = {}
-    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
-        maps = [m.to(dtype) for m in maps32]
-        for name, boxes in (("main", main_boxes), ("edge", edge)):
-            got = roi_align_cuda(maps, boxes)
-            want = multiscale_roi_align(maps, boxes)
-            torch.cuda.synchronize()
-            if got.dtype != dtype or got.shape != want.shape:
-                raise AssertionError(f"kernel output {got.dtype} {tuple(got.shape)}")
-            err = (got.float() - want.float()).abs().max().item()
-            errs[(dtype, name)] = err
-            ok = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
-            log(f"[kernel] roi_align {str(dtype)[6:]} {name} boxes {tuple(boxes.shape)}: "
-                f"max|kernel-plain| {err:.3e} (rtol=atol={tol:g}) {'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(f"roi_align kernel disagrees with plain version ({dtype}, {name})")
+    for c in (256, 136, 64):
+        g = torch.Generator(device="cuda").manual_seed(c)
+        maps32 = [torch.randn(BATCH, CANVAS[0] // s, CANVAS[1] // s, c, device="cuda", generator=g)
+                  for s in (4, 8, 16, 32)]
+        for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, 1e-2)):
+            full = [m.to(dtype) for m in maps32]
+            for name, bsz, boxes in cases:
+                maps = full if bsz == BATCH else [m[:bsz].contiguous() for m in full]
+                got = roi_align_cuda(maps, boxes)
+                want = multiscale_roi_align(maps, boxes)
+                torch.cuda.synchronize()
+                if got.dtype != dtype or got.shape != want.shape:
+                    raise AssertionError(f"kernel output {got.dtype} {tuple(got.shape)}")
+                err = (got.float() - want.float()).abs().max().item()
+                errs[(dtype, c, name)] = err
+                ok = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
+                log(f"[kernel] roi_align {str(dtype)[6:]} C={c} {name} boxes {tuple(boxes.shape)}: "
+                    f"max|kernel-plain| {err:.3e} (rtol=atol={tol:g}) {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"roi_align kernel disagrees with plain version "
+                                         f"({dtype}, C={c}, {name})")
+            del full
+    fp32 = max(v for (d, _, _), v in errs.items() if d == torch.float32)
+    log(f"[kernel] roi_align: all {len(errs)} cases agree; largest fp32 error {fp32:.3e}")
+    return errs[(torch.bfloat16, 256, "main")], fp32
 
-    maps = [m.to(torch.bfloat16) for m in maps32]
-    ms = graph_ms(lambda: roi_align_cuda(maps, main_boxes), iters=20)
-    call_ms = cuda_ms(lambda: roi_align_cuda(maps, main_boxes), iters=200)
+
+def time_kernel(main_boxes, baseline=None):
+    """Times on the main path's inputs (bf16, C=256, 832x1344, batch 8).
+    ``baseline``, another build of the kernel's C interface, is timed alone
+    beside this one, in turns: baseline, kernel, kernel, baseline."""
+    from skghoi_torch.ops.roi_align import fpn_level_assignment, multiscale_roi_align
+    from skghoi_torch.ops.roi_align_cuda import roi_align_cuda
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    maps = [torch.randn(BATCH, CANVAS[0] // s, CANVAS[1] // s, 256, device="cuda", generator=g)
+            .to(torch.bfloat16) for s in (4, 8, 16, 32)]
+    levels = fpn_level_assignment(main_boxes).contiguous()
+    out = torch.empty((*main_boxes.shape[:2], 7, 7, 256), dtype=torch.bfloat16, device="cuda")
+    pyramid_mb = sum(m.numel() * m.element_size() for m in maps) / 1e6
+    # Cold L2: successive calls read different copies of the pyramid, so no
+    # call finds the previous one's cells in the 50 MB L2 (the main path's
+    # pyramid is fresh from the backbone, 380 MB).  Six copies check three.
+    copies = [maps] + [[m.clone() for m in maps] for _ in range(5)]
+
+    def alone(k):
+        """(cold with 3 copies, cold with 6, warm) ms of kernel build ``k`` alone."""
+        def call(m):
+            return lambda: k.launch(m, main_boxes, levels, out)
+        cold = [graph_ms([call(copies[i % n]) for i in range(10 * n)], iters=20) for n in (3, 6)]
+        return (*cold, graph_ms([call(maps)] * 20, iters=20))
+
+    # The same number of items, each a 2x2-cell padding slot: the kernel's
+    # cost that does not grow with the cells it reads.
+    pad = torch.zeros_like(main_boxes)
+    pad_levels = fpn_level_assignment(pad).contiguous()
+    pad_ms = graph_ms([(lambda m: lambda: roi_align_cuda.launch(m, pad, pad_levels, out))(
+        copies[i % 3]) for i in range(30)], iters=20)
+    if baseline is None:
+        cold_ms, cold6_ms, warm_ms = alone(roi_align_cuda)
+    else:
+        turns = [baseline, roi_align_cuda, roi_align_cuda, baseline]
+        got = [alone(k) for k in turns]
+        for k in turns[:2]:
+            rs = [tuple(round(x, 5) for x in r) for kk, r in zip(turns, got) if kk is k]
+            log(f"[kernel] in turns (baseline, kernel, kernel, baseline), {k.source}: kernel alone, "
+                f"(cold 3 copies, cold 6 copies, warm) ms {rs}")
+        cold_ms, cold6_ms, warm_ms = got[2]
+    del copies
+    call_ms = graph_ms([lambda: roi_align_cuda(maps, main_boxes)] * 20, iters=20)
+    eager_ms = cuda_ms(lambda: roi_align_cuda(maps, main_boxes), iters=200)
     plain_ms = cuda_ms(lambda: multiscale_roi_align(maps, main_boxes), iters=10)
     bound_ms, bound_by, touched = roi_bound_ms(maps, main_boxes)
-    log(f"[kernel] roi_align bf16 B={BATCH} N={main_boxes.shape[1]} C=256: device {ms:.4f} ms "
-        f"per call (CUDA graph: level assignment + kernel), eager call {call_ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
-        f"({touched} distinct cells read)")
+    log(f"[kernel] roi_align bf16 B={BATCH} N={main_boxes.shape[1]} C=256, pyramid "
+        f"{pyramid_mb:.1f} MB: kernel alone, cold L2 {cold_ms:.5f} ms (3 pyramid copies; "
+        f"{cold6_ms:.5f} with 6), warm L2 {warm_ms:.5f} ms (same inputs), both CUDA graph; "
+        f"padding slots only {pad_ms:.5f} ms (cold); "
+        f"per call with level assignment {call_ms:.5f} ms (CUDA graph, warm); "
+        f"eager call {eager_ms:.5f} ms; plain {plain_ms:.4f} ms; bound {bound_ms:.5f} ms by "
+        f"{bound_by} ({touched} distinct cells read): cold time at {bound_ms / cold_ms:.1%} "
+        f"of the bound")
+    return dict(ms=cold_ms, cold_ms=cold_ms, cold6_ms=cold6_ms, warm_ms=warm_ms, pad_ms=pad_ms,
+                call_ms=call_ms,
+                eager_ms=eager_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                bound_share=bound_ms / cold_ms, library_ms=None)
+
+
+def phase_kernel(main_boxes, baseline=None):
+    err_bf16, err_fp32 = check_kernel(main_boxes)
     return dict(name="roi_align", route="cuda", source="skghoi_torch/csrc/roi_align.cu",
                 replaces="skghoi_tpu/ops/pallas_roi_align.py:213",
-                max_abs_err=errs[(torch.bfloat16, "main")],
-                max_abs_err_fp32=max(v for (d, _), v in errs.items() if d == torch.float32),
-                ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=None)
+                max_abs_err=err_bf16, max_abs_err_fp32=err_fp32, **time_kernel(main_boxes, baseline))
 
 
 def phase_parity():
@@ -248,7 +377,7 @@ def profile_forward(model, batch, ovm, profile_dir, request_s):
     device = [e for e in events if e.device_type == DeviceType.CUDA]  # kernels, copies
     busy_ms = sum(e.self_device_time_total for e in device) / 1e3
     n_kernels = sum(e.count for e in device)
-    roi = [e for e in events if "roi_align_fwd_kernel" in e.key]
+    roi = [e for e in events if "roi_align_staged_kernel" in e.key]
     log(events.table(sort_by="self_device_time_total", row_limit=15))
     roi_ms = roi[0].self_device_time_total / roi[0].count / 1e3 if roi else float("nan")
     log(f"[profile] one bf16 forward: device busy {busy_ms:.3f} ms in {n_kernels} device ops; "
@@ -277,6 +406,8 @@ def profile_forward(model, batch, ovm, profile_dir, request_s):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", default=None, help="directory for a torch.profiler trace")
+    ap.add_argument("--baseline-source", default=None,
+                    help="another roi_align.cu with the same C interface, timed in turns beside this one")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -284,7 +415,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from skghoi_torch.entry import make_batch
     from skghoi_torch.models.interaction_head import filter_detections
-    from skghoi_torch.ops.roi_align_cuda import roi_align_cuda
+    from skghoi_torch.ops.roi_align_cuda import RoIAlignKernel, roi_align_cuda
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -293,15 +424,17 @@ def main() -> int:
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
-    roi_align_cuda.build()
-    log(f"[build] roi_align.cu -> {roi_align_cuda.build_dir.name}/ in {roi_align_cuda.build_seconds:.2f} s")
-    for line in roi_align_cuda.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] {line.strip()}")
+    baseline = RoIAlignKernel(Path(args.baseline_source)) if args.baseline_source else None
+    for k in (roi_align_cuda, baseline) if baseline else (roi_align_cuda,):
+        k.build()
+        log(f"[build] {k.source} -> {k.build_dir.name}/ in {k.build_seconds:.2f} s")
+        for line in k.build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] {line.strip()}")
 
     b = make_batch(BATCH, CANVAS, device="cuda")
     main_boxes = filter_detections(b.det_boxes, b.det_labels, b.det_scores, b.det_valid).boxes
-    kernel = phase_kernel(main_boxes.contiguous())
+    kernel = phase_kernel(main_boxes.contiguous(), baseline)
     phase_parity()
     kernel["launches"] = phase_main(REQUESTS, args.profile)
 

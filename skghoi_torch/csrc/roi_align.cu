@@ -1,29 +1,72 @@
 // Multi-scale RoIAlign forward for Hopper (sm_90a), NHWC feature maps.
 //
-// Replaces the Pallas TPU kernel skghoi_tpu/ops/pallas_roi_align.py
-// (pallas_multiscale_roi_align / _kernel, together with its overflow rescue
-// roi_align_exact): torchvision roi_align, aligned=False, 7x7 output,
-// sampling ratio 2, one FPN level per box.  It computes every box exactly,
-// whatever its span: samples are read straight from global memory / L2, so
-// there is no window and no rescue path.
+// Replaces the Pallas TPU kernel skghoi_tpu/ops/pallas_roi_align.py::
+// pallas_multiscale_roi_align (pallas_call at :213, body _kernel :90-117)
+// together with its overflow rescue roi_align_exact (:344-368): torchvision
+// roi_align, aligned=False, 7x7 output, sampling ratio 2, one FPN level per
+// box, exact for every box whatever its span.
 //
-// Bound on the card: bytes.  Per output value it does 16 multiply-adds over
-// 16 loads, so the time floor is the distinct map cells the boxes touch plus
-// the output, over HBM bandwidth.  Design for that:
-//   * one block per (box, output row), threads over channels, two channels a
-//     thread: every load is a coalesced 4-byte (bf16x2) or 8-byte (float2)
-//     access along the contiguous C axis of NHWC;
-//   * the row's 2 y samples and the box's 14 x samples (low/high index,
-//     weights, out-of-bounds zeroing, clamp-to-edge, minimum RoI of 1 cell)
-//     are computed once into shared memory by 16 threads;
-//   * fp32 accumulation, one store in the maps' dtype.
-// Neighbouring samples share corners, so repeated reads hit L1/L2 and DRAM
-// traffic stays near the distinct-cell floor.
+// Bound on the card: bytes.  It does about one fp32 multiply-add per byte it
+// reads, far below the ~295 operations per byte where the tensor cores would
+// be the limit, so the TPU's A_y W A_x^T matmul form (made for the MXU) is not
+// carried over.  The floor is the distinct map cells the boxes touch, read
+// once, plus the output, written once, over HBM bandwidth: at the main path's
+// shapes (bf16, 8 x 30 boxes, C=256, 832x1344 pyramid) 18.6 MB + 6.0 MB,
+// 7.35 us on an H100 SXM at 3.35 TB/s.
+//
+// Design: stage each work item's distinct cells in shared memory with 16-byte
+// asynchronous copies, then interpolate from shared memory.
+//   * Work item: (box, channel slice of 256 bytes = 128 bf16 or 64 fp32
+//     channels; the last slice may be narrower).  Persistent CTAs, two per SM.
+//     CTA k starts with item k; its later items are chosen by estimated work
+//     (4 classes), so that a CTA with a large first item gets a small next one
+//     (plan_items, run by the consumer warps while the first rows load).
+//   * Warp roles: 2 producer warps fetch boxes, build each item's geometry and
+//     issue the copies; 7 consumer warps interpolate, warp px output pixel px.
+//     One barrier per output row; the producers' copies and geometry for later
+//     rows overlap the consumers' arithmetic on this one.
+//   * Geometry, per item: the 14 y and 14 x sample positions (the plain
+//     version's fp32 formula, round-to-nearest intrinsics so nothing is
+//     contracted into an FMA), the sorted lists of distinct rows and columns
+//     (at most 28 each, from two ballots: build_axis), and per output row and
+//     column a bin: the at most 4 distinct cells its two samples touch, with
+//     their summed weights.  An output value is then a sum over bin x bin
+//     cells (at most 16, 6-9 for most boxes) rather than over 16 corners.
+//   * Staging: output row py needs the distinct map rows of its y bin, at
+//     most 4.  Rows stream, each once, into a ring of 12 row slots (28 columns
+//     x 256 bytes) with cp.async.cg, 16 bytes a thread, neighbouring threads
+//     on neighbouring addresses; one commit group per output row, two rows
+//     ahead of the one being computed.  The stream runs on across items, so
+//     the next item's first rows are in flight while this one finishes.
+//   * Interpolation: lane l of a consumer warp owns channel bytes 8l..8l+7 of
+//     the slice, so a warp covers a pixel's 256 bytes: 8-byte shared loads,
+//     fp32 accumulation, one 8-byte store a lane in the maps' dtype.  Code is
+//     specialised for each (rows, columns) bin size, all loads before the
+//     first multiply-add.  (With 16 bytes a lane a pixel would take half a
+//     warp, and the other half would have to work on another sample and add
+//     by shuffles; 8 bytes a lane needs no shuffle and keeps every lane busy.)
+// Against the design it replaces (one block per box and output row, 16
+// corners read from global memory, 4 bytes a thread):
+//   1. re-reads: each distinct cell of an item leaves global memory once, not
+//      once per corner of every row-block that needs it;
+//   2. narrow loads: copies are 16 bytes a thread;
+//   3. serial pixels: feature values come from shared memory, so no output
+//      store can alias the next pixel's loads;
+//   4. serial prologue: the next item's geometry is built by the producers
+//      during this item's first output row, from a box fetched one item
+//      earlier.
+// What limits it now is not memory: a warm L2 saves it a few percent, and
+// padding slots alone (2x2 cells an item) take two thirds of its time.  The
+// rest is latency (each item's start: box, geometry, first copies; each
+// output row's barrier) and the warps' instruction streams (PERF.md).
+// TMA (cp.async.bulk.tensor) is not used: a box's distinct cells form a dense
+// rectangle only while its samples are under a cell apart; larger boxes touch
+// a strided subset of rows and columns that a tensor-map box would over-fetch
+// (up to 4x the bytes for a 28-cell span), and a second path for the dense
+// case would double what has to be tested.
 //
 // The level of each box comes from the caller (the same LevelMapper op the
 // plain version uses), so both pick the same level at an exact boundary.
-// Sample positions use the plain version's fp32 formula with explicit
-// round-to-nearest intrinsics, so the compiler cannot contract them into FMAs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -33,8 +76,23 @@ namespace {
 
 constexpr int kPooled = 7;
 constexpr int kSr = 2;
-constexpr int kSamples = kPooled * kSr;  // samples per axis
-constexpr int kThreads = 128;
+constexpr int kSamples = kPooled * kSr;   // samples per axis
+constexpr int kMaxCells = 2 * kSamples;   // distinct rows (or columns) of an item, at most
+constexpr int kSliceBytes = 256;          // channels of a work item
+constexpr int kVecs = kSliceBytes / 16;   // 16-byte vectors in a slice
+constexpr int kConsumers = kPooled;       // warp px < 7 interpolates output pixel px
+constexpr int kProducers = 2;             // warps 7 and 8 stage rows and build geometry
+constexpr int kWarps = kConsumers + kProducers;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kMaxOrdered = 4096;         // items the work order is planned for; beyond, index order
+constexpr int kColStep = 32 * kProducers / kVecs;  // columns a producer lane steps by
+constexpr int kColsPerLane = (kMaxCells + kColStep - 1) / kColStep;
+constexpr int kAhead = 2;                 // output rows staged ahead of the one computed
+constexpr int kSlots = 4 * (kAhead + 1);  // an output row needs at most 4 map rows
+constexpr int kSlotBytes = kMaxCells * kSliceBytes;
+constexpr int kRingBytes = kSlots * kSlotBytes;  // 86,016 bytes of dynamic shared memory
+constexpr int kBlocksPerSm = 2;
+constexpr unsigned kFull = 0xffffffffu;
 
 struct Levels {
   const void* maps[4];
@@ -43,23 +101,64 @@ struct Levels {
   float scale[4];  // 1 / stride
 };
 
-__device__ __forceinline__ float2 load2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
+// One output row (y) or column (x): the distinct cells its two samples touch,
+// cells first .. first+n-1 of the item's sorted distinct list (n <= 4: no
+// other sample's cell lies between them), with the summed weights of those
+// cells (y: times the 1/4 of the mean over the 2x2 samples).
+struct __align__(16) Bin {
+  int first, n;
+  float w[4];
+};
+
+// One work item: where its slice starts, and its sample geometry.
+struct Geom {
+  const char* src;  // this image's map at row 0, column 0, the slice's first channel
+  int w;            // map width
+  int box;          // box index in [0, B*N)
+  int c0;           // first channel of the slice
+  int nvec;         // 16-byte vectors in the slice
+  int ny, nx;       // distinct rows and columns
+  int row[kMaxCells], col[kMaxCells];  // sorted distinct map rows and columns
+  Bin yb[kPooled], xb[kPooled];
+};
+
+// 16 bytes from global memory to the shared-memory address `smem`.
+__device__ __forceinline__ void cp_async16(unsigned smem, const void* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem), "l"(gmem));
 }
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
-__device__ __forceinline__ void store2(float* p, float2 v) {
-  *reinterpret_cast<float2*>(p) = v;
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float2 v) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __float22bfloat162_rn(v);
+
+// acc += w * (8 bytes of channels).
+__device__ __forceinline__ void fma8(float (&acc)[2], uint2 u, float w) {
+  acc[0] += w * __uint_as_float(u.x);
+  acc[1] += w * __uint_as_float(u.y);
+}
+__device__ __forceinline__ void fma8(float (&acc)[4], uint2 u, float w) {
+  acc[0] += w * __uint_as_float(u.x << 16);  // element 2i in the low half of word i
+  acc[1] += w * __uint_as_float(u.x & 0xffff0000u);
+  acc[2] += w * __uint_as_float(u.y << 16);
+  acc[3] += w * __uint_as_float(u.y & 0xffff0000u);
+}
+__device__ __forceinline__ void store8(float* p, const float (&v)[2]) {
+  *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+}
+__device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&v)[4]) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(*reinterpret_cast<const unsigned*>(&lo), *reinterpret_cast<const unsigned*>(&hi));
 }
 
 // One sample position along one axis: low/high cell and their weights, with
 // torchvision's boundary rules.  Out-of-bounds samples get zero weights.
-__device__ __forceinline__ void axis_sample(float start, float roi_len, int size, int s,
-                                            int* lo, int* hi, float* w_lo, float* w_hi) {
+__device__ __forceinline__ void axis_sample(float start, float roi_len, int size, int s, int* lo,
+                                            int* hi, float* w_lo, float* w_hi) {
   const float bin_len = __fdiv_rn(roi_len, (float)kPooled);
   const float rel = __fadd_rn((float)(s / kSr), ((float)(s % kSr) + 0.5f) / kSr);
   float pos = __fadd_rn(start, __fmul_rn(rel, bin_len));
@@ -74,62 +173,391 @@ __device__ __forceinline__ void axis_sample(float start, float roi_len, int size
   *w_hi = oob ? 0.0f : frac;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-roi_align_fwd_kernel(Levels lv, const float* __restrict__ boxes,
-                     const int* __restrict__ levels, T* __restrict__ out, int n_boxes, int c) {
-  const int row = blockIdx.x % kPooled;
-  const int box = blockIdx.x / kPooled;
-  const int img = box / n_boxes;
-  const int l = levels[box];
-  const int h = lv.h[l], w = lv.w[l];
-  const float scale = lv.scale[l];
+// One axis of an item's geometry, by one whole warp; lane s < 14 holds
+// sample s.  The samples are monotone and hi <= lo + 1, so the sequence lo0,
+// hi0, lo1, hi1, ... is sorted once repeated samples (lo equal to the previous
+// sample's) are dropped: a cell is new where it exceeds the one before it, and
+// its index in the sorted distinct list is the count of new cells before it.
+// A repeated sample takes the indices of the first sample of its run.  Lanes
+// 0-6 then merge samples 2b and 2b+1 into bin b.
+__device__ __forceinline__ void build_axis(float start, float roi_len, int size, float w_scale,
+                                           int* cells, Bin* bins, int* n) {
+  const int lane = threadIdx.x & 31;
+  int lo, hi;
+  float wl, wh;
+  axis_sample(start, roi_len, size, min(lane, kSamples - 1), &lo, &hi, &wl, &wh);
+  const int prev_lo = __shfl_up_sync(kFull, lo, 1), prev_hi = __shfl_up_sync(kFull, hi, 1);
+  const bool live = lane < kSamples;
+  const bool head = live && (lane == 0 || lo != prev_lo);  // first sample of a run
+  const bool new_lo = head && (lane == 0 || lo > prev_hi);
+  const bool new_hi = head && hi > lo;
+  const unsigned m_lo = __ballot_sync(kFull, new_lo), m_hi = __ballot_sync(kFull, new_hi);
+  const unsigned m_head = __ballot_sync(kFull, head);
+  const unsigned below = (1u << lane) - 1u;
+  const int before = __popc(m_lo & below) + __popc(m_hi & below);
+  const int r_lo_head = new_lo ? before : before - 1;
+  const int r_hi_head = new_hi ? before + (new_lo ? 1 : 0) : r_lo_head;
+  if (new_lo) cells[r_lo_head] = lo;
+  if (new_hi) cells[r_hi_head] = hi;
+  if (lane == 0) *n = __popc(m_lo) + __popc(m_hi);
+  const int run = 31 - __clz(m_head & (below | (1u << lane)));  // lane of the run's head
+  const int r_lo = __shfl_sync(kFull, r_lo_head, live ? run : 0);
+  const int r_hi = __shfl_sync(kFull, r_hi_head, live ? run : 0);
 
-  __shared__ int x_lo[kSamples], x_hi[kSamples], y_lo[kSr], y_hi[kSr];
-  __shared__ float xw_lo[kSamples], xw_hi[kSamples], yw_lo[kSr], yw_hi[kSr];
-
-  const int t = threadIdx.x;
-  if (t < kSamples + kSr) {
-    const float* bx = boxes + (size_t)box * 4;
-    const bool is_x = t < kSamples;
-    const int axis = is_x ? 0 : 1;
-    const float start = bx[axis] * scale;
-    const float roi_len = fmaxf(__fsub_rn(bx[axis + 2] * scale, start), 1.0f);
-    if (is_x) {
-      axis_sample(start, roi_len, w, t, &x_lo[t], &x_hi[t], &xw_lo[t], &xw_hi[t]);
-    } else {
-      const int i = t - kSamples;
-      axis_sample(start, roi_len, h, row * kSr + i, &y_lo[i], &y_hi[i], &yw_lo[i], &yw_hi[i]);
+  const int b = lane % kPooled, s0 = kSr * b, s1 = s0 + 1;
+  const int lo0 = __shfl_sync(kFull, r_lo, s0), hi0 = __shfl_sync(kFull, r_hi, s0);
+  const int lo1 = __shfl_sync(kFull, r_lo, s1), hi1 = __shfl_sync(kFull, r_hi, s1);
+  const float wl0 = __shfl_sync(kFull, wl, s0) * w_scale, wh0 = __shfl_sync(kFull, wh, s0) * w_scale;
+  const float wl1 = __shfl_sync(kFull, wl, s1) * w_scale, wh1 = __shfl_sync(kFull, wh, s1) * w_scale;
+  if (lane < kPooled) {
+    Bin bin;
+    bin.first = lo0;
+    bin.n = hi1 - lo0 + 1;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int cell = lo0 + i;
+      bin.w[i] = (lo0 == cell ? wl0 : 0.0f) + (hi0 == cell ? wh0 : 0.0f) +
+                 (lo1 == cell ? wl1 : 0.0f) + (hi1 == cell ? wh1 : 0.0f);
     }
+    bins[b] = bin;
+  }
+}
+
+// The geometry of the item (box b, channel slice `slice`) into g: producer
+// warp 0 its x axis and where its slice starts, producer warp 1 its y axis;
+// consumer warps return.
+template <typename T>
+__device__ __forceinline__ void build_geom(Levels lv, float4 box, int level, int b, int slice,
+                                           int n_boxes, int c, Geom& g) {
+  const int pw = (threadIdx.x >> 5) - kConsumers;
+  if (pw < 0) return;
+  const void* map = lv.maps[0];
+  int h = lv.h[0], w = lv.w[0];
+  float scale = lv.scale[0];
+#pragma unroll
+  for (int i = 1; i < 4; ++i) {  // selects, not a run-time index into the parameter block
+    if (level == i) {
+      map = lv.maps[i];
+      h = lv.h[i];
+      w = lv.w[i];
+      scale = lv.scale[i];
+    }
+  }
+  const bool is_x = pw == 0;
+  const float start = (is_x ? box.x : box.y) * scale;
+  const float len = fmaxf(__fsub_rn((is_x ? box.z : box.w) * scale, start), 1.0f);
+  if (is_x) {
+    build_axis(start, len, w, 1.0f, g.col, g.xb, &g.nx);
+    if ((threadIdx.x & 31) == 0) {
+      const int c0 = slice * (kSliceBytes / (int)sizeof(T));
+      g.box = b;
+      g.c0 = c0;
+      g.w = w;
+      g.nvec = min(kVecs, (c - c0) * (int)sizeof(T) / 16);
+      g.src = static_cast<const char*>(map) +
+              ((size_t)(b / n_boxes) * h * w * c + c0) * sizeof(T);
+    }
+  } else {
+    build_axis(start, len, h, 1.0f / (kSr * kSr), g.row, g.yb, &g.ny);
+  }
+}
+
+// Last distinct row that output row py of the item in g reads.
+__device__ __forceinline__ int last_row(const Geom& g, int py) {
+  return g.yb[py].first + g.yb[py].n - 1;
+}
+
+// What a producer lane needs of an item to stage its rows: the lane keeps one
+// 16-byte vector v of the slice and takes the columns k0, k0 + 4, ... of each
+// row, whose byte offsets it holds.
+struct StageLane {
+  const char* src;  // the item's map at row 0, column 0, vector v
+  size_t row_bytes;
+  unsigned dst;     // shared address of ring slot 0, column k0, vector v
+  unsigned col[kColsPerLane];  // byte offsets of columns k0 + kColStep * i in a map row
+  int ncol;         // of them in the item
+};
+
+template <typename T>
+__device__ __forceinline__ StageLane stage_lane(const Geom& g, int c, unsigned ring) {
+  const int t = threadIdx.x - 32 * kConsumers;
+  const int v = t % kVecs, k0 = t / kVecs;
+  const unsigned cell_bytes = (unsigned)c * sizeof(T);
+  StageLane s;
+  const int nx = v < g.nvec ? g.nx : 0;
+  s.ncol = nx > k0 ? (nx - k0 + kColStep - 1) / kColStep : 0;
+#pragma unroll
+  for (int i = 0; i < kColsPerLane; ++i) {
+    s.col[i] = i < s.ncol ? (unsigned)g.col[k0 + kColStep * i] * cell_bytes : 0u;
+  }
+  s.src = g.src + v * 16;
+  s.row_bytes = (size_t)g.w * cell_bytes;
+  s.dst = ring + k0 * kSliceBytes + v * 16;
+  return s;
+}
+
+// Issue the copies of the map rows that output row py of the item in g needs
+// and no earlier output row of it did.  Distinct row d of the item goes to
+// ring slot (base + d) % kSlots.
+__device__ __forceinline__ void stage_rows(const Geom& g, const StageLane& s, int py, int base) {
+  if (s.ncol == 0) return;
+  const int d1 = last_row(g, py);
+  for (int d = py == 0 ? 0 : last_row(g, py - 1) + 1; d <= d1; ++d) {
+    const char* row = s.src + (size_t)g.row[d] * s.row_bytes;
+    const unsigned dst = s.dst + ((base + d) % kSlots) * kSlotBytes;
+#pragma unroll
+    for (int i = 0; i < kColsPerLane; ++i) {
+      if (i < s.ncol) cp_async16(dst + i * kColStep * kSliceBytes, row + s.col[i]);
+    }
+  }
+}
+
+// What a consumer thread needs of an item to interpolate: its pixel's column
+// bin (byte offset of its first cell in a ring row, weights) and its output
+// address.  Warp px computes output pixel (py, px); lane l owns channel bytes
+// 8l..8l+7 of the slice, so a warp reads and writes the slice's 256 bytes.
+template <typename T>
+struct PixelLane {
+  int col_off, n;
+  float w[4];
+  T* out;  // output row 0, this warp's pixel, this lane's channels
+  bool live;
+};
+
+template <typename T>
+__device__ __forceinline__ PixelLane<T> pixel_lane(const Geom& g, int c, T* out) {
+  const int px = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const Bin xb = g.xb[px];
+  PixelLane<T> p;
+  p.col_off = xb.first * kSliceBytes + lane * 8;
+  p.n = xb.n;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) p.w[i] = xb.w[i];
+  p.live = lane < 2 * g.nvec;
+  p.out = out + ((size_t)g.box * kPooled * kPooled + px) * c + g.c0 + lane * (8 / sizeof(T));
+  return p;
+}
+
+// acc += the weighted sum over NY rows (from ring slot `slot` on, wrapping)
+// and NX columns (from byte `col` of a row) of the ring.  All loads are
+// issued before the first multiply-add, so their latencies overlap.
+template <int NY, int NX, int N>
+__device__ __forceinline__ void sum_cells(float (&acc)[N], const unsigned char* ring, int slot,
+                                          int col, const float (&wy)[4], const float (&wx)[4]) {
+  uint2 v[NY][NX];
+#pragma unroll
+  for (int i = 0; i < NY; ++i) {
+    const unsigned char* r = ring + slot * kSlotBytes + col;
+#pragma unroll
+    for (int k = 0; k < NX; ++k) v[i][k] = *reinterpret_cast<const uint2*>(r + k * kSliceBytes);
+    slot = slot + 1 == kSlots ? 0 : slot + 1;
+  }
+#pragma unroll
+  for (int i = 0; i < NY; ++i) {
+#pragma unroll
+    for (int k = 0; k < NX; ++k) fma8(acc, v[i][k], wy[i] * wx[k]);
+  }
+}
+
+// Output row py of the item in g, from the ring: the weighted sum over the
+// distinct cells of the row's y bin and the pixel's x bin, fp32 accumulation.
+// The bins' sizes are uniform over the warp; each of the 16 pairs has its own
+// code, so a row does only the loads and multiply-adds its cells need.
+template <typename T>
+__device__ __forceinline__ void interpolate_row(const Geom& g, const PixelLane<T>& p, int py,
+                                                int base, int c, const unsigned char* ring) {
+  if (!p.live) return;
+  const Bin yb = g.yb[py];
+  const int slot = (base + yb.first) % kSlots;
+  float acc[8 / sizeof(T)];
+#pragma unroll
+  for (int i = 0; i < (int)(8 / sizeof(T)); ++i) acc[i] = 0.0f;
+  switch ((yb.n - 1) * 4 + p.n - 1) {
+#define SKGHOI_CASE(NY, NX)                                   \
+  case (NY - 1) * 4 + NX - 1:                                 \
+    sum_cells<NY, NX>(acc, ring, slot, p.col_off, yb.w, p.w); \
+    break;
+    SKGHOI_CASE(1, 1) SKGHOI_CASE(1, 2) SKGHOI_CASE(1, 3) SKGHOI_CASE(1, 4)
+    SKGHOI_CASE(2, 1) SKGHOI_CASE(2, 2) SKGHOI_CASE(2, 3) SKGHOI_CASE(2, 4)
+    SKGHOI_CASE(3, 1) SKGHOI_CASE(3, 2) SKGHOI_CASE(3, 3) SKGHOI_CASE(3, 4)
+    SKGHOI_CASE(4, 1) SKGHOI_CASE(4, 2) SKGHOI_CASE(4, 3) SKGHOI_CASE(4, 4)
+#undef SKGHOI_CASE
+  }
+  store8(p.out + (size_t)py * kPooled * c, acc);
+}
+
+// Work class of a box, 0-3: its distinct cells, estimated as
+// min(side / stride + 2, 28) per axis, in quarters of the most (28 x 28).
+__device__ __forceinline__ int work_class(float4 box, int level, const Levels& lv) {
+  float scale = lv.scale[0];
+#pragma unroll
+  for (int i = 1; i < 4; ++i) scale = level == i ? lv.scale[i] : scale;
+  const float w = fminf(fmaxf((box.z - box.x) * scale + 2.0f, 1.0f), 28.0f);
+  const float h = fminf(fmaxf((box.w - box.y) * scale + 2.0f, 1.0f), 28.0f);
+  return min(3, (int)(w * h * (4.0f / 785.0f)));
+}
+
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(32 * kConsumers) : "memory");
+}
+__device__ __forceinline__ void producer_sync() {
+  asm volatile("bar.sync 2, %0;\n" ::"n"(32 * kProducers) : "memory");
+}
+
+// Consumer warps, while the first rows are in flight: how the CTA's items
+// after the first are chosen.  CTA k's first item is item k; `rank` is its
+// place among the first round's G items by work class, largest first (then
+// by position).  The later items, ordered the same way into `rest`, are dealt
+// back and forth by rank (later_item), so the CTAs with the largest first
+// items get the smallest next ones, or none.  Each box's class is computed
+// once into `box_class`; a position in `rest` is where its class starts,
+// plus the items of its class before it: in earlier rounds of 224, in
+// earlier warps (`cnt`), in earlier lanes (ballot).
+__device__ __forceinline__ void plan_items(const float4* boxes, const int* levels,
+                                           const Levels& lv, int n_items, int n_slices,
+                                           uint8_t* box_class, uint16_t* rest,
+                                           int (&cnt)[kConsumers][4], int* rank) {
+  constexpr int kN = 32 * kConsumers;
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31, g = gridDim.x;
+  for (int i = t; i < n_items / n_slices; i += kN) {
+    box_class[i] = (uint8_t)work_class(boxes[i], levels[i], lv);
+  }
+  if (t == 0) *rank = 0;
+  consumer_sync();
+  const int mine = box_class[blockIdx.x / n_slices];
+  int before = 0;
+  for (int p = t; p < g; p += kN) {
+    const int k = box_class[p / n_slices];
+    before += k > mine || (k == mine && p < (int)blockIdx.x);
+  }
+  before = __reduce_add_sync(kFull, before);
+  if (lane == 0) atomicAdd(rank, before);
+  const int n = n_items - g;
+  int start[4] = {0, 0, 0, 0};  // first position of each class still free
+  for (int sweep = 0; sweep < 2; ++sweep) {  // 0: class sizes; 1: positions
+    for (int base = 0; base < n; base += kN) {
+      const int i = base + t;
+      const int k = i < n ? box_class[(g + i) / n_slices] : -1;
+      unsigned mk = 0;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const unsigned m = __ballot_sync(kFull, k == kk);
+        if (lane == 0) cnt[warp][kk] = __popc(m);
+        mk = k == kk ? m : mk;
+      }
+      consumer_sync();
+      if (sweep == 1 && i < n) {
+        int pos = 0;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) pos = k == kk ? start[kk] : pos;
+        for (int w = 0; w < warp; ++w) pos += cnt[w][k];
+        rest[pos + __popc(mk & ((1u << lane) - 1u))] = (uint16_t)i;
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        for (int w = 0; w < kConsumers; ++w) start[kk] += cnt[w][kk];
+      }
+      consumer_sync();
+    }
+    if (sweep == 0) {  // sizes -> starts, largest class first
+      const int s3 = start[3], s2 = start[2], s1 = start[1];
+      start[3] = 0;
+      start[2] = s3;
+      start[1] = s3 + s2;
+      start[0] = s3 + s2 + s1;
+    }
+  }
+}
+
+// Item of the CTA's j-th round (j >= 1), or -1: see plan_items.
+__device__ __forceinline__ int later_item(int j, int rank, int n_items, bool ordered,
+                                          const uint16_t* rest) {
+  const int g = gridDim.x;
+  const int q = (j - 1) * g + ((j & 1) ? g - 1 - rank : rank);
+  if (q >= n_items - g) return -1;
+  return g + (ordered ? rest[q] : q);
+}
+
+// Producer warps: fetch boxes, build geometry, stage rows.  Consumer warps:
+// plan the later items, then interpolate.  One barrier per output row: after
+// it, the row's cells are in the ring and the previous row's reads are done,
+// so the producers may refill the slots that row no longer needs.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+roi_align_staged_kernel(Levels lv, const float4* __restrict__ boxes,
+                        const int* __restrict__ levels, T* __restrict__ out, int n_boxes,
+                        int n_items, int n_slices, int c) {
+  extern __shared__ __align__(16) unsigned char ring[];
+  __shared__ Geom geom[2];  // item j's geometry in geom[j & 1]
+  __shared__ uint16_t rest[kMaxOrdered];
+  __shared__ uint8_t box_class[kMaxOrdered];
+  __shared__ int class_count[kConsumers][4];
+  __shared__ int first_rank;
+  const bool producer = threadIdx.x >= 32 * kConsumers;
+  const bool ordered = n_items <= kMaxOrdered;
+  const unsigned ring_s = static_cast<unsigned>(__cvta_generic_to_shared(ring));
+
+  // Box, slice and level of the next item whose geometry is built, fetched ahead.
+  float4 box = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  int b = 0, slice = 0, level = 0;
+  auto fetch = [&](int p) {
+    b = p / n_slices;
+    slice = p - b * n_slices;
+    box = boxes[b];
+    level = levels[b];
+  };
+
+  StageLane sl, sl_next;
+  if (producer) {
+    fetch((int)blockIdx.x);  // grid <= n_items
+    build_geom<T>(lv, box, level, b, slice, n_boxes, c, geom[0]);
+    producer_sync();
+    sl = stage_lane<T>(geom[0], c, ring_s);
+    sl_next = sl;
+#pragma unroll
+    for (int q = 0; q < kAhead; ++q) {
+      stage_rows(geom[0], sl, q, 0);
+      cp_async_commit();
+    }
+  } else if (ordered) {
+    plan_items(boxes, levels, lv, n_items, n_slices, box_class, rest, class_count, &first_rank);
   }
   __syncthreads();
+  const int rank = ordered ? first_rank : blockIdx.x;
+  int n_mine = 1;
+  while (later_item(n_mine, rank, n_items, ordered, rest) >= 0) ++n_mine;
+  if (producer && n_mine > 1) fetch(later_item(1, rank, n_items, ordered, rest));
 
-  const T* fm = static_cast<const T*>(lv.maps[l]) + (size_t)img * h * w * c;
-  T* o = out + ((size_t)box * kPooled + row) * kPooled * c;
-  for (int ch = 2 * t; ch < c; ch += 2 * kThreads) {
-    for (int px = 0; px < kPooled; ++px) {
-      float2 acc = make_float2(0.0f, 0.0f);
-#pragma unroll
-      for (int sy = 0; sy < kSr; ++sy) {
-        const T* r_lo = fm + (size_t)y_lo[sy] * w * c + ch;
-        const T* r_hi = fm + (size_t)y_hi[sy] * w * c + ch;
-#pragma unroll
-        for (int sx = 0; sx < kSr; ++sx) {
-          const int s = px * kSr + sx;
-          const float w00 = yw_lo[sy] * xw_lo[s], w01 = yw_lo[sy] * xw_hi[s];
-          const float w10 = yw_hi[sy] * xw_lo[s], w11 = yw_hi[sy] * xw_hi[s];
-          const float2 v00 = load2(r_lo + (size_t)x_lo[s] * c);
-          const float2 v01 = load2(r_lo + (size_t)x_hi[s] * c);
-          const float2 v10 = load2(r_hi + (size_t)x_lo[s] * c);
-          const float2 v11 = load2(r_hi + (size_t)x_hi[s] * c);
-          acc.x += w00 * v00.x + w01 * v01.x + w10 * v10.x + w11 * v11.x;
-          acc.y += w00 * v00.y + w01 * v01.y + w10 * v10.y + w11 * v11.y;
-        }
+  int base = 0;  // ring slot of the current item's distinct row 0
+  for (int j = 0; j < n_mine; ++j) {
+    const Geom& g = geom[j & 1];
+    const int base_next = (base + g.ny) % kSlots;
+    PixelLane<T> pl;
+    if (!producer) pl = pixel_lane<T>(g, c, out);
+    for (int py = 0; py < kPooled; ++py) {
+      if (producer) cp_async_wait<kAhead - 1>();  // output row py's rows have landed
+      __syncthreads();
+      if (!producer) {
+        interpolate_row<T>(g, pl, py, base, c, ring);
+        continue;
       }
-      const float inv = 1.0f / (kSr * kSr);
-      store2(o + (size_t)px * c + ch, make_float2(acc.x * inv, acc.y * inv));
+      const int qa = py + kAhead;
+      if (qa < kPooled) {
+        stage_rows(g, sl, qa, base);
+      } else if (j + 1 < n_mine) {  // built at py == 0, visible since the barrier at py == 1
+        if (qa == kPooled) sl_next = stage_lane<T>(geom[(j + 1) & 1], c, ring_s);
+        stage_rows(geom[(j + 1) & 1], sl_next, qa - kPooled, base_next);
+      }
+      cp_async_commit();  // possibly empty: one group per output row keeps the count fixed
+      if (py == 0 && j + 1 < n_mine) {  // geom[(j+1)&1] was item j-1's, no longer read
+        build_geom<T>(lv, box, level, b, slice, n_boxes, c, geom[(j + 1) & 1]);
+        if (j + 2 < n_mine) fetch(later_item(j + 2, rank, n_items, ordered, rest));
+      }
     }
+    base = base_next;
+    sl = sl_next;
   }
+  if (producer) cp_async_wait<0>();
 }
 
 template <typename T>
@@ -144,11 +572,37 @@ int launch(const void* f0, const void* f1, const void* f2, const void* f3, const
     lv.w[i] = hw[2 * i + 1];
     lv.scale[i] = scales[i];
   }
-  const int blocks = n_images * n_boxes * kPooled;
-  if (blocks > 0) {
-    roi_align_fwd_kernel<T><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        lv, boxes, levels, static_cast<T*>(out), n_boxes, c);
+  const int slice = kSliceBytes / (int)sizeof(T);
+  const int n_slices = (c + slice - 1) / slice;
+  const int n_items = n_images * n_boxes * n_slices;
+  if (n_items == 0) return (int)cudaSuccess;
+
+  // Set up once per device, outside any stream capture that may follow.
+  static int sms[64] = {0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (sms[dev] == 0) {
+    err = cudaFuncSetAttribute(roi_align_staged_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kRingBytes);
+    if (err == cudaSuccess) {  // room for kBlocksPerSm rings on an SM
+      err = cudaFuncSetAttribute(roi_align_staged_kernel<T>,
+                                 cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
+    }
+    if (err == cudaSuccess) {
+      err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+    }
+    if (err != cudaSuccess) {
+      sms[dev] = 0;
+      return (int)err;
+    }
   }
+  const int grid = n_items < kBlocksPerSm * sms[dev] ? n_items : kBlocksPerSm * sms[dev];
+  roi_align_staged_kernel<T><<<grid, kThreads, kRingBytes, static_cast<cudaStream_t>(stream)>>>(
+      lv, reinterpret_cast<const float4*>(boxes), levels, static_cast<T*>(out), n_boxes, n_items,
+      n_slices, c);
   return (int)cudaGetLastError();
 }
 
@@ -156,7 +610,9 @@ int launch(const void* f0, const void* f1, const void* f2, const void* f3, const
 
 // Plain C interface, loaded with ctypes.  Pointers are device pointers except
 // `hw` ([4][2] level sizes) and `scales` ([4]), which live on the host.
-// Returns cudaGetLastError() after the launch (0 = cudaSuccess).
+// `levels` holds each box's level.  The maps, boxes and output must be 16-byte
+// aligned and c a multiple of 8.  Returns cudaGetLastError() after the launch
+// (0 = cudaSuccess).
 extern "C" int skghoi_roi_align_fwd_f32(const void* f0, const void* f1, const void* f2,
                                         const void* f3, const int* hw, const float* scales,
                                         const float* boxes, const int* levels, void* out,

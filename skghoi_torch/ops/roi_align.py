@@ -30,8 +30,20 @@ def fpn_level_assignment(boxes: Tensor, canonical_scale: int = 224, canonical_le
                          k_min: int = 2, k_max: int = 5, eps: float = 1e-6) -> Tensor:
     """torchvision ``LevelMapper``: ``[..., 4]`` boxes -> int32 level in ``[0, k_max-k_min]``."""
     area = ((boxes[..., 2] - boxes[..., 0]) * (boxes[..., 3] - boxes[..., 1])).clamp_min(0.0)
-    lvl = torch.floor(canonical_level + torch.log2(torch.sqrt(area) / canonical_scale + eps))
+    lvl = torch.floor(canonical_level + torch.log2(_div(torch.sqrt(area), canonical_scale) + eps))
     return (lvl.clamp(k_min, k_max) - k_min).to(torch.int32)
+
+
+def _div(x: Tensor, d: float) -> Tensor:
+    """``x / d`` rounded once, as the CUDA kernel's ``__fdiv_rn`` does.
+
+    For a Python-number (or CPU 0-dim) divisor torch's CUDA ``div`` multiplies
+    by the reciprocal, which differs from true division in the last bit for
+    about half of all float32 inputs; a divisor tensor on ``x``'s device makes
+    it divide.  On the CPU torch divides either way, so the result there is
+    bit-for-bit that of ``x / d``.
+    """
+    return x / torch.full((), d, dtype=x.dtype, device=x.device)
 
 
 def _sample_axis(start: Tensor, roi_len: Tensor, size: int, pooled: int, sr: int):
@@ -40,7 +52,7 @@ def _sample_axis(start: Tensor, roi_len: Tensor, size: int, pooled: int, sr: int
     bins = torch.arange(pooled, dtype=torch.float32, device=start.device)
     off = (torch.arange(sr, dtype=torch.float32, device=start.device) + 0.5) / sr
     rel = (bins[:, None] + off[None, :]).reshape(-1)  # bin + (i + .5)/sr, flattened
-    pos = start[..., None] + rel * (roi_len / pooled)[..., None]
+    pos = start[..., None] + rel * _div(roi_len, pooled)[..., None]
     oob = (pos < -1.0) | (pos > size)
     pos = pos.clamp_min(0.0)
     low = torch.floor(pos).to(torch.int64).clamp_max(size - 1)

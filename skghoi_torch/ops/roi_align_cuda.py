@@ -3,9 +3,11 @@
 The kernel (``skghoi_torch/csrc/roi_align.cu``) replaces the Pallas TPU kernel
 ``skghoi_tpu/ops/pallas_roi_align.py::pallas_multiscale_roi_align`` together
 with its overflow rescue ``roi_align_exact``: it computes every box exactly,
-sampling straight from global memory, so the 48x56 VMEM window and the rescue
-path of the TPU version have no counterpart.  It is bound by bytes on the
-card (see the source's header for what the design does about that).
+so the 48x56 VMEM window and the rescue path of the TPU version have no
+counterpart.  Its roofline bound on the card is bytes: each work item (box,
+256-byte channel slice) stages its distinct map cells in shared memory with
+16-byte asynchronous copies and interpolates from there (the source's header
+says how, and what limits it now).
 
 The source is compiled with ``nvcc`` for ``sm_90a`` into a shared library with
 a plain C interface on first use, into ``skghoi_torch/_build/`` (ignored by
@@ -42,10 +44,8 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_void_p, ctypes.c_void_p,
-                                     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                                     ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                     ctypes.c_void_p]
+# maps x4, hw, scales, boxes, levels, out, n_images, n_boxes, c, stream
+_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
 def _nvcc() -> str:
@@ -95,15 +95,38 @@ class RoIAlignKernel:
     def __call__(self, feature_maps: Sequence[Tensor], boxes: Tensor,
                  strides: Sequence[int] = FPN_STRIDES) -> Tensor:
         """``[B, N, 4]`` float32 boxes over four contiguous ``[B, H_l, W_l, C]``
-        CUDA maps (float32 or bfloat16) -> ``[B, N, 7, 7, C]`` in the maps' dtype."""
+        CUDA maps (float32 or bfloat16, ``C % 8 == 0``) -> ``[B, N, 7, 7, C]``
+        in the maps' dtype."""
         maps = tuple(feature_maps)
         _check_inputs(maps, boxes, strides)
-        lib = self.build()
+        levels = fpn_level_assignment(boxes).contiguous()
+        out = torch.empty((*boxes.shape[:2], ROI_POOL_SIZE, ROI_POOL_SIZE, maps[0].shape[-1]),
+                          dtype=maps[0].dtype, device=boxes.device)
+        return self._run(maps, boxes, levels, out, strides)
+
+    def launch(self, maps: Sequence[Tensor], boxes: Tensor, levels: Tensor, out: Tensor,
+               strides: Sequence[int] = FPN_STRIDES) -> Tensor:
+        """The kernel alone: ``levels`` (int32 ``[B, N]``, from
+        :func:`fpn_level_assignment`) and ``out`` are given by the caller."""
+        maps = tuple(maps)
+        _check_inputs(maps, boxes, strides)
         bsz, n = boxes.shape[:2]
         c = maps[0].shape[-1]
-        levels = fpn_level_assignment(boxes).contiguous()
-        out = torch.empty((bsz, n, ROI_POOL_SIZE, ROI_POOL_SIZE, c),
-                          dtype=maps[0].dtype, device=boxes.device)
+        if (levels.dtype != torch.int32 or levels.shape != (bsz, n) or not levels.is_contiguous()
+                or levels.device != boxes.device):
+            raise ValueError(f"levels must be contiguous int32 [{bsz}, {n}] on {boxes.device}")
+        if (out.dtype != maps[0].dtype or out.shape != (bsz, n, ROI_POOL_SIZE, ROI_POOL_SIZE, c)
+                or not out.is_contiguous() or out.device != boxes.device or out.data_ptr() % 16):
+            raise ValueError("out must be a contiguous, 16-byte aligned [B, N, 7, 7, C] "
+                             "tensor in the maps' dtype")
+        return self._run(maps, boxes, levels, out, strides)
+
+    def _run(self, maps, boxes: Tensor, levels: Tensor, out: Tensor, strides) -> Tensor:
+        if out.numel() == 0:
+            return out
+        bsz, n = boxes.shape[:2]
+        c = maps[0].shape[-1]
+        lib = self.build()
         hw = (ctypes.c_int * 8)(*[d for fm in maps for d in fm.shape[1:3]])
         scales = (ctypes.c_float * 4)(*[1.0 / s for s in strides])
         fn = (lib.skghoi_roi_align_fwd_bf16 if maps[0].dtype == torch.bfloat16
@@ -118,29 +141,39 @@ class RoIAlignKernel:
 
 
 def _check_inputs(maps, boxes: Tensor, strides) -> None:
+    """Raise one ValueError that names every problem with the inputs."""
     if len(maps) != 4 or len(strides) != 4:
         raise ValueError("expected four FPN levels and four strides")
-    if boxes.device.type != "cuda":
-        raise ValueError(f"roi_align kernel needs CUDA tensors, got boxes on {boxes.device}")
     if boxes.dtype != torch.float32 or boxes.dim() != 3 or boxes.shape[-1] != 4:
         raise ValueError(f"boxes must be float32 [B, N, 4], got {boxes.dtype} {tuple(boxes.shape)}")
+    problems = []
+    if boxes.device.type != "cuda":
+        problems.append(f"roi_align kernel needs CUDA tensors, got boxes on {boxes.device}")
     if not boxes.is_contiguous():
-        raise ValueError("boxes must be contiguous")
+        problems.append("boxes must be contiguous")
     dtype = maps[0].dtype
     if dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"feature maps must be float32 or bfloat16, got {dtype}")
+        problems.append(f"feature maps must be float32 or bfloat16, got {dtype}")
     bsz, c = boxes.shape[0], maps[0].shape[-1]
-    if c % 2:
-        raise ValueError(f"channel count must be even, got {c}")
+    if c % 8:
+        problems.append(f"channel count must be a multiple of 8 (16-byte vectors), got {c}")
     for l, fm in enumerate(maps):
-        if fm.device != boxes.device or fm.dtype != dtype:
-            raise ValueError(f"level {l}: {fm.dtype} on {fm.device}, expected {dtype} on {boxes.device}")
+        if fm.dtype != dtype:
+            problems.append(f"level {l}: dtype {fm.dtype}, expected {dtype} like level 0")
+        if fm.device != boxes.device:
+            problems.append(f"level {l}: on {fm.device}, expected {boxes.device}")
         if fm.dim() != 4 or fm.shape[0] != bsz or fm.shape[-1] != c:
-            raise ValueError(f"level {l}: shape {tuple(fm.shape)}, expected [{bsz}, H, W, {c}]")
+            problems.append(f"level {l}: shape {tuple(fm.shape)}, expected [{bsz}, H, W, {c}]")
         if not fm.is_contiguous():
-            raise ValueError(f"level {l}: feature map must be contiguous NHWC")
+            problems.append(f"level {l}: feature map must be contiguous NHWC")
+        if fm.dim() == 4 and fm.shape[2] * c * fm.element_size() >= 2**31:
+            problems.append(f"level {l}: a map row must be under 2 GiB (32-bit column offsets)")
+    if any(t.data_ptr() % 16 for t in (boxes, *maps)):
+        problems.append("boxes and feature maps must be 16-byte aligned")
     if boxes.requires_grad or any(fm.requires_grad for fm in maps):
-        raise ValueError("roi_align kernel is forward only; call it under torch.no_grad()")
+        problems.append("roi_align kernel is forward only; call it under torch.no_grad()")
+    if problems:
+        raise ValueError("; ".join(problems))
 
 
 roi_align_cuda = RoIAlignKernel()

@@ -5,9 +5,11 @@ The gather reference ``multiscale_roi_align``, the exact Pallas path
 in Pallas interpret mode) on the fixtures of ``test_pallas_roi_align.py``,
 including the 832x1344 window-overflow boxes; rtol/atol 1e-4.  The CUDA
 kernel itself is held against this plain version on the card by
-``chip_smoke.py``.
+``chip_smoke.py``; here, its wrapper's refusals and the box cases that
+``chip_smoke.py`` builds for it.
 """
 
+import chip_smoke
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -17,8 +19,9 @@ import torch
 from skghoi_tpu.ops.pallas_roi_align import pallas_multiscale_roi_align, roi_align_exact
 from skghoi_tpu.ops.roi_align import fpn_level_assignment as jax_levels
 from skghoi_tpu.ops.roi_align import multiscale_roi_align as jax_gather
+from skghoi_torch.ops import roi_align as plain
 from skghoi_torch.ops.roi_align import fpn_level_assignment, multiscale_roi_align
-from skghoi_torch.ops.roi_align_cuda import roi_align_auto, roi_align_cuda
+from skghoi_torch.ops.roi_align_cuda import RoIAlignKernel, roi_align_auto, roi_align_cuda
 
 torch.set_num_threads(2)
 
@@ -116,3 +119,202 @@ def test_auto_dispatch_cpu_and_kernel_refuses_cpu():
     with pytest.raises(ValueError, match="CUDA"):
         roi_align_cuda(tm, tb)
     assert roi_align_cuda.launches == before
+
+
+def _bad_inputs(kind):
+    rng = np.random.default_rng(5)
+    c = 12 if kind == "channels_not_multiple_of_8" else 16
+    maps = [torch.from_numpy(m) for m in make_maps(rng, 2, (64, 96), c)]
+    boxes = torch.tensor([[[4.0, 4.0, 40.0, 30.0]]] * 2)
+    if kind == "mixed_dtypes":
+        maps[2] = maps[2].to(torch.bfloat16)
+    if kind == "non_contiguous":
+        maps[1] = maps[1].permute(0, 2, 1, 3).contiguous().permute(0, 2, 1, 3)
+    return maps, boxes
+
+
+@pytest.mark.parametrize("kind, match", [("channels_not_multiple_of_8", "multiple of 8"),
+                                         ("mixed_dtypes", "dtype"),
+                                         ("non_contiguous", "contiguous")])
+def test_kernel_refuses_before_building(kind, match, tmp_path):
+    maps, boxes = _bad_inputs(kind)
+    kernel = RoIAlignKernel(build_dir=tmp_path)
+    for call in (lambda: kernel(maps, boxes),
+                 lambda: kernel.launch(maps, boxes, fpn_level_assignment(boxes),
+                                       torch.empty(2, 1, 7, 7, maps[0].shape[-1]))):
+        with pytest.raises(ValueError, match=match):
+            call()
+    assert kernel.launches == 0 and kernel._lib is None and not any(tmp_path.iterdir())
+
+
+def test_plain_division_matches_python_number_on_cpu(monkeypatch):
+    # The plain version divides by a float32 tensor on the input's device (so
+    # that CUDA divides instead of multiplying by the reciprocal); on the CPU
+    # that is bit-for-bit the division by the Python number.
+    maps, boxes = fixture("overflow")
+    boxes = np.concatenate([boxes, np.asarray([EXTREME[:4]], np.float32)], 1)
+    got = port(maps, boxes)
+    got_levels = fpn_level_assignment(torch.from_numpy(boxes)).numpy()
+    monkeypatch.setattr(plain, "_div", lambda x, d: x / d)
+    np.testing.assert_array_equal(got, port(maps, boxes))
+    np.testing.assert_array_equal(got_levels, fpn_level_assignment(torch.from_numpy(boxes)).numpy())
+
+
+def test_chip_smoke_grid28_boxes_reach_the_largest_grid():
+    hw = [(chip_smoke.CANVAS[0] // s, chip_smoke.CANVAS[1] // s) for s in (4, 8, 16, 32)]
+    got = torch.stack(chip_smoke.grid_shapes(torch.tensor(chip_smoke.GRID28_BOXES), hw), -1)
+    assert [tuple(r) for r in got.tolist()] == chip_smoke.GRID28_SHAPES
+    # No box of any level has more distinct rows or columns than 2 x 14 samples.
+    rng = np.random.default_rng(2)
+    xy = rng.uniform(-100, 1400, (500, 2))
+    boxes = torch.from_numpy(np.concatenate([xy, xy + rng.uniform(0, 1200, (500, 2))], -1)
+                             .astype(np.float32))
+    _, rows, cols = chip_smoke.grid_shapes(boxes, hw)
+    assert int(rows.max()) <= 28 and int(cols.max()) <= 28
+
+
+def test_chip_smoke_map_edge_boxes_cover_every_edge_and_level():
+    boxes = np.asarray(chip_smoke.MAP_EDGE_BOXES, np.float32)
+    h, w = chip_smoke.CANVAS
+    assert (boxes[:, 0] <= 0).any() and (boxes[:, 1] <= 0).any()
+    assert (boxes[:, 2] >= w).any() and (boxes[:, 3] >= h).any()
+    levels = fpn_level_assignment(torch.from_numpy(boxes))
+    assert sorted(set(levels.tolist())) == [0, 1, 2, 3]
+
+
+def test_chip_smoke_kernel_cases_shapes():
+    main = torch.from_numpy(np.asarray([EDGE * 5] * chip_smoke.BATCH, np.float32))
+    cases = chip_smoke.kernel_cases(main)
+    assert [name for name, _, _ in cases] == ["main", "edge", "grid28", "map_edges", "padding",
+                                              "b1n1", "many"]
+    for name, bsz, boxes in cases:
+        assert boxes.shape[0] == bsz and boxes.shape[-1] == 4 and boxes.is_contiguous(), name
+    assert not cases[4][2].any() and cases[5][2].shape == (1, 1, 4)
+    # "many": more items than the kernel plans for (kMaxOrdered, roi_align.cu) at every C
+    assert cases[6][2].shape == (chip_smoke.BATCH, chip_smoke.MANY_BOXES, 4)
+    assert chip_smoke.BATCH * chip_smoke.MANY_BOXES > 4096
+
+
+def _kernel_ranks(lo, hi):
+    """The kernel's indices of each sample's low and high cell in the sorted
+    distinct list, and that list, by its rule: drop samples whose low cell
+    repeats the previous one's; of the rest, a cell is new where it exceeds
+    the cell before it in lo0, hi0, lo1, hi1, ...; a repeated sample takes the
+    indices of the first sample of its run."""
+    cells, r_lo, r_hi = [], [], []
+    for s in range(len(lo)):
+        if s > 0 and lo[s] == lo[s - 1]:
+            r_lo.append(r_lo[-1])
+            r_hi.append(r_hi[-1])
+            continue
+        if s == 0 or lo[s] > hi[s - 1]:
+            cells.append(lo[s])
+        r_lo.append(len(cells) - 1)
+        if hi[s] > lo[s]:
+            cells.append(hi[s])
+        r_hi.append(len(cells) - 1)
+    return np.asarray(cells), np.asarray(r_lo), np.asarray(r_hi)
+
+
+def _merged_weights_roi_align(maps, boxes):
+    """The CUDA kernel's arithmetic in numpy: per box, the sorted distinct rows
+    and columns its samples read, each output row's and column's bin (the
+    distinct cells of its two samples, summed weights), and the output as the
+    weighted sum over bin x bin.  Checks the kernel's invariants on the way."""
+    boxes_t = torch.from_numpy(boxes)
+    levels = fpn_level_assignment(boxes_t).numpy()
+    c = maps[0].shape[-1]
+    out = np.zeros(boxes.shape[:2] + (7, 7, c), np.float32)
+    for (b, n), l in np.ndenumerate(levels):
+        fm, stride = maps[l][b], (4, 8, 16, 32)[l]
+        bins = []
+        for axis, size in ((1, fm.shape[0]), (0, fm.shape[1])):
+            start = boxes_t[b:b + 1, n:n + 1, axis] * (1.0 / stride)
+            length = (boxes_t[b:b + 1, n:n + 1, axis + 2] * (1.0 / stride) - start).clamp_min(1.0)
+            lo, hi, w_lo, w_hi, oob = (t.reshape(-1).numpy() for t in
+                                       plain._sample_axis(start, length, size, 7, 2))
+            w_lo, w_hi = np.where(oob, 0, w_lo), np.where(oob, 0, w_hi)  # as the kernel does
+            cells = np.unique(np.concatenate([lo, hi]))
+            assert len(cells) <= 28
+            rlo, rhi = np.searchsorted(cells, lo), np.searchsorted(cells, hi)
+            k_cells, k_lo, k_hi = _kernel_ranks(lo, hi)
+            np.testing.assert_array_equal(k_cells, cells)
+            np.testing.assert_array_equal(k_lo, rlo)
+            np.testing.assert_array_equal(k_hi, rhi)
+            axis_bins = []
+            for k in range(7):
+                s0, s1 = 2 * k, 2 * k + 1
+                first, count = rlo[s0], rhi[s1] - rlo[s0] + 1
+                assert count <= 4 and set(range(first, first + count)) == {
+                    rlo[s0], rhi[s0], rlo[s1], rhi[s1]}
+                w = np.zeros(count, np.float32)
+                for r, wt in ((rlo[s0], w_lo[s0]), (rhi[s0], w_hi[s0]),
+                              (rlo[s1], w_lo[s1]), (rhi[s1], w_hi[s1])):
+                    w[r - first] += wt
+                axis_bins.append((cells[first:first + count], w))
+            bins.append(axis_bins)
+        for py, (ys, wy) in enumerate(bins[0]):
+            for px, (xs, wx) in enumerate(bins[1]):
+                out[b, n, py, px] = np.einsum("i,k,ikc->c", wy * 0.25, wx, fm[ys][:, xs])
+    return out
+
+
+@pytest.mark.parametrize("name", ["random", "edge", "extreme", "overflow"])
+def test_kernel_merged_weights_match_plain(name):
+    maps, boxes = fixture(name)
+    np.testing.assert_allclose(_merged_weights_roi_align(maps, boxes), port(maps, boxes),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_kernel_merged_weights_grid28_map_edges_and_random():
+    rng = np.random.default_rng(11)
+    maps = make_maps(rng, 1, chip_smoke.CANVAS, 8)
+    xy = rng.uniform(-60, 1400, (40, 2))
+    rand = np.concatenate([xy, xy + np.exp(rng.uniform(0, 7, (40, 2)))], -1).tolist()
+    boxes = np.asarray([chip_smoke.GRID28_BOXES + chip_smoke.MAP_EDGE_BOXES + rand], np.float32)
+    np.testing.assert_allclose(_merged_weights_roi_align(maps, boxes), port(maps, boxes),
+                               rtol=1e-5, atol=1e-5)
+
+
+def _kernel_classes(boxes, levels, strides=(4, 8, 16, 32)):
+    """The kernel's work_class: estimated distinct cells in quarters of 28 x 28."""
+    w = np.clip((boxes[:, 2] - boxes[:, 0]) / np.take(strides, levels) + 2, 1, 28)
+    h = np.clip((boxes[:, 3] - boxes[:, 1]) / np.take(strides, levels) + 2, 1, 28)
+    return np.minimum(3, (w * h * (4.0 / 785.0)).astype(np.int32))
+
+
+def _kernel_items(item_class, grid):
+    """The items each CTA takes (plan_items, later_item): CTA k first item k;
+    then, by its rank among the first round (class, largest first, then
+    position), items of the rest in the same order, dealt back and forth."""
+    n_items = len(item_class)
+    key = lambda p: (-item_class[p], p)  # noqa: E731
+    rank = {p: r for r, p in enumerate(sorted(range(grid), key=key))}
+    rest = sorted(range(grid, n_items), key=key)
+    dealt = {}
+    for k in range(grid):
+        items, j = [k], 1
+        while True:
+            q = (j - 1) * grid + (grid - 1 - rank[k] if j % 2 else rank[k])
+            if q >= len(rest):
+                break
+            items.append(rest[q])
+            j += 1
+        dealt[k] = items
+    return dealt
+
+
+@pytest.mark.parametrize("grid, n_items", [(1, 7), (5, 5), (5, 6), (5, 9), (5, 10), (5, 23),
+                                           (264, 264), (264, 480), (264, 1000)])
+def test_kernel_deals_every_item_once(grid, n_items):
+    rng = np.random.default_rng(grid + n_items)
+    xy = rng.uniform(-60, 1300, ((n_items + 1) // 2, 2))
+    boxes = np.concatenate([xy, xy + np.exp(rng.uniform(0, 7, xy.shape))], -1).astype(np.float32)
+    classes = _kernel_classes(boxes, fpn_level_assignment(torch.from_numpy(boxes)).numpy())
+    item_class = np.repeat(classes, 2)[:n_items]  # two channel slices a box
+    dealt = _kernel_items(item_class, grid)
+    assert sorted(p for items in dealt.values() for p in items) == list(range(n_items))
+    if grid < n_items < 2 * grid:  # the largest first items get no second one
+        by_rank = sorted(range(grid), key=lambda p: (-item_class[p], p))
+        assert all(len(dealt[k]) == 1 for k in by_rank[:2 * grid - n_items])
+        assert all(len(dealt[k]) == 2 for k in by_rank[2 * grid - n_items:])
