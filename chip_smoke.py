@@ -26,15 +26,45 @@ Phases, each reporting on its own lines; any failure exits non-zero:
    answering ``REQUESTS`` forward requests with the launch counts set to 0
    just before; it checks the scores, that the kernel ran once per request,
    prints img/s, and holds the scores against the float32 network's.
+5. The RoIAlign gradient: ``RoIAlignFunction`` (the kernel forward, the
+   adjoint GEMMs backward) against autograd through the plain gather
+   version, on the card, with respect to all four maps of the 832x1344
+   pyramid (C=256, batch 8) for the main path's boxes, the edge/overflow
+   boxes and the map-edge boxes: float32 within rtol 1e-3 / atol 1e-4 (the
+   JAX suite's tolerance for this gradient); bfloat16 maps and cotangent
+   against the float32 reference within ``2^-8 * (|ref| + A|g|)`` per
+   element, where ``A|g|`` is the adjoint of the cotangent's magnitude (the
+   cotangent's rounding, 2^-9 relative, plus the result's, with a factor 2
+   to spare).  Then the adjoint alone on the main path's inputs (bf16): its
+   eager time and its device time (CUDA events, the call queued behind a
+   device sleep), beside its byte bound and its GEMM-operation bound, and
+   the launches one call issues (torch.profiler's host-side launch calls).
+6. The float32 train step on the card against the same step on the CPU
+   (64x96, batch 2; TF32 off; the same seeded weights, batch and Gumbel
+   noise): the three losses within rtol 1e-5, every gradient within
+   ``1e-3 * max|g|`` of the CPU's (the adjacency bias, whose exact
+   gradient is 0, at the adjacency weight's scale).
+7. The training main path: ``entry.train_entry()``, the bfloat16 SCG at full
+   width, 832x1344, batch 8, ``frozen_stages=1``, three losses, two-group
+   AdamW at the reference lr; one warm-up step, then ``TRAIN_STEPS`` timed
+   steps with the counts set to 0 just before.  It checks that every loss
+   is finite and every step applied, that the kernel and its adjoint ran
+   once per step, that the stem and ``layer1`` are bit-for-bit unchanged and
+   that both optimizer groups moved; prints per-step ms, train img/s, peak
+   memory, the losses, and what the NaN guard's host read costs.
+   ``--profile`` adds one traced train step (device busy and idle share, top
+   operations).
 
-It prints the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
-Without a CUDA device it exits with code 2 and prints no result.
+It prints the adjoint's and the train step's JSON lines, the kernels' JSON
+line, the card, then ``{"ok": true, "device": ...}`` last.  Without a CUDA
+device it exits with code 2 and prints no result.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -49,6 +79,9 @@ FP32_TOL = 1e-5  # kernel vs plain, float32: 20x the largest error measured (PER
 CANVAS = (832, 1344)
 BATCH = 8
 REQUESTS = 5  # main-path forward requests (the contract asks for at least 3)
+TRAIN_STEPS = 5  # timed train steps of the training main path
+ADJOINT_TOL = dict(rtol=1e-3, atol=1e-4)  # tests/test_pallas_roi_align.py:106-129
+PARITY_SEED = 0  # weights of the train-step parity phase
 
 EDGE_BOXES = [  # tests/test_pallas_roi_align.py: edge, extreme and overflow fixtures
     [0.0, 0.0, 383.0, 255.0], [-20.0, -20.0, 30.0, 30.0], [370.0, 240.0, 383.0, 255.0],
@@ -96,6 +129,29 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+# Host calls that put work on the device, as torch.profiler names them.
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+                "cudaMemsetAsync", "cudaMemcpyAsync")
+
+
+def queued_ms(fn, reps: int) -> float:
+    """Median device time of ``fn``: each call is queued behind a ~20 ms
+    device sleep, so the host has issued all of it before the device starts
+    and the events measure the device alone (``fn`` must not synchronise)."""
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(40_000_000)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[reps // 2]
 
 
 def graph_ms(calls, iters: int) -> float:
@@ -357,6 +413,221 @@ def phase_main(requests: int, profile_dir):
     return launches
 
 
+def _map_grads(fn, maps, cot):
+    """Gradients of ``sum(fn(maps) * cot)`` with respect to each map."""
+    leaves = [m.detach().requires_grad_(True) for m in maps]
+    (fn(leaves).float() * cot.float()).sum().backward()
+    return [m.grad for m in leaves]
+
+
+def adjoint_bounds(shapes, n_boxes, elem):
+    """Least time for the adjoint: (bytes ms, GEMM-operation ms, bytes, ops).
+    Bytes: the cotangent and boxes read once, the four map gradients written
+    once.  Operations: the two GEMMs of each level as they are formulated
+    (every box at every level, the other levels' boxes masked to zero), at
+    the float32 rate outside the tensor cores (TF32 is off)."""
+    bsz, c = shapes[0][0], shapes[0][3]
+    n_bytes = (bsz * n_boxes * 49 * c + sum(b * h * w * c for b, h, w, _ in shapes)) * elem
+    n_bytes += bsz * n_boxes * 16
+    ops = sum(2 * bsz * n_boxes * 7 * w * 7 * c + 2 * bsz * h * w * c * 7 * n_boxes
+              for _, h, w, _ in shapes)
+    return n_bytes / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOPS_PER_S * 1e3, n_bytes, ops
+
+
+def phase_adjoint(main_boxes):
+    """The kernel's autograd node against autograd through the plain version,
+    then the adjoint alone timed against its bounds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from skghoi_torch.ops.roi_align import multiscale_roi_align, roi_align_adjoint
+    from skghoi_torch.ops.roi_align_cuda import RoIAlignFunction
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    maps32 = [torch.randn(BATCH, CANVAS[0] // s, CANVAS[1] // s, 256, device="cuda", generator=g)
+              for s in (4, 8, 16, 32)]
+    maps16 = [m.bfloat16() for m in maps32]
+    cases = [("main", main_boxes), ("edge", torch.tensor([EDGE_BOXES] * BATCH, device="cuda")),
+             ("map_edges", torch.tensor([MAP_EDGE_BOXES] * BATCH, device="cuda"))]
+    errs = {}
+    for name, boxes in cases:
+        cot = torch.randn(*boxes.shape[:2], 7, 7, 256, device="cuda", generator=g)
+        plain = lambda m: multiscale_roi_align(m, boxes)  # noqa: E731
+        node = lambda m: RoIAlignFunction.apply(boxes, *m)  # noqa: E731
+        ref = _map_grads(plain, maps32, cot)
+        ref_abs = _map_grads(plain, maps32, cot.abs())
+        got32 = _map_grads(node, maps32, cot)
+        got16 = _map_grads(node, maps16, cot.bfloat16())
+        for l, (r, ra, a, b) in enumerate(zip(ref, ref_abs, got32, got16)):
+            if a.dtype != torch.float32 or b.dtype != torch.bfloat16 or a.shape != r.shape:
+                raise AssertionError(f"adjoint {name} level {l}: {a.dtype} {b.dtype} {tuple(a.shape)}")
+            ok32 = torch.allclose(a, r, **ADJOINT_TOL)
+            excess = ((b.float() - r).abs() - 2.0 ** -8 * (r.abs() + ra)).max().item()
+            errs[(name, l)] = ((a - r).abs().max().item(), (b.float() - r).abs().max().item())
+            log(f"[adjoint] {name} boxes {tuple(boxes.shape)} P{l + 2}: fp32 max|node-plain| "
+                f"{errs[(name, l)][0]:.3e} (rtol 1e-3, atol 1e-4) {'ok' if ok32 else 'FAIL'}; "
+                f"bf16 max|node-plain fp32| {errs[(name, l)][1]:.3e}, largest excess over "
+                f"2^-8 (|ref| + A|g|) {excess:.3e} {'ok' if excess <= 0 else 'FAIL'}; "
+                f"max|ref| {r.abs().max().item():.3e}")
+            if not ok32 or excess > 0:
+                raise AssertionError(f"RoIAlign gradient disagrees with the plain version "
+                                     f"({name}, level {l})")
+    if not any(r.abs().max() > 0 for r in ref):
+        raise AssertionError("adjoint: the reference gradient is 0; the check would be vacuous")
+
+    shapes = [tuple(m.shape) for m in maps16]
+    cot = torch.randn(*main_boxes.shape[:2], 7, 7, 256, device="cuda", generator=g).bfloat16()
+    run = lambda: roi_align_adjoint(shapes, torch.bfloat16, main_boxes, cot)  # noqa: E731
+    ms = cuda_ms(run, iters=20)
+    device_ms = queued_ms(run, reps=5)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    launches = sum(e.count for e in prof.key_averages() if e.key in LAUNCH_CALLS)
+    bytes_ms, ops_ms, n_bytes, ops = adjoint_bounds(shapes, main_boxes.shape[1], 2)
+    log(f"[adjoint] bf16 B={BATCH} N={main_boxes.shape[1]} C=256 832x1344 pyramid: "
+        f"{ms:.4f} ms a call (eager, CUDA events), {device_ms:.4f} ms of device time (queued "
+        f"behind a sleep, so host launches are hidden), {launches} device launches a call; "
+        f"byte bound {bytes_ms:.4f} ms ({n_bytes / 1e6:.1f} MB), GEMM-operation bound "
+        f"{ops_ms:.4f} ms ({ops / 1e9:.1f} GFLOP at the fp32 rate): device time at "
+        f"{bytes_ms / device_ms:.1%} of the byte bound, {ops_ms / device_ms:.1%} of the "
+        f"operation bound")
+    log(prof.key_averages().table(sort_by="self_device_time_total", row_limit=8))
+    return dict(name="roi_align_adjoint", route="torch (cuBLAS GEMMs)",
+                source="skghoi_torch/ops/roi_align.py::roi_align_adjoint",
+                replaces="skghoi_tpu/ops/pallas_roi_align.py:222-265", ms=ms,
+                device_ms=device_ms, launches_per_call=launches, bytes_bound_ms=bytes_ms,
+                ops_bound_ms=ops_ms,
+                max_abs_err_fp32=max(e[0] for e in errs.values()),
+                max_abs_err_bf16=max(e[1] for e in errs.values()))
+
+
+def phase_train_parity():
+    """The float32 train step on the card against the same step on the CPU."""
+    from skghoi_torch.entry import build_model, make_batch, verb_mask
+    from skghoi_torch.models.graph_head import gumbel_noise
+    from skghoi_torch.parallel.train_step import build_train_step
+    from skghoi_torch.train.optimizer import build_optimizer
+
+    gumbel = gumbel_noise((2, 15 * 30 * 117), torch.Generator().manual_seed(3), "cpu")
+    res = {}
+    for dev in ("cpu", "cuda"):
+        model = build_model(dtype=torch.float32, device=dev, seed=PARITY_SEED)
+        step = build_train_step(model, build_optimizer(model), verb_mask(device=dev))
+        _, losses, _, applied = step(make_batch(2, (64, 96), with_targets=True, device=dev),
+                                     gumbel=gumbel.to(dev))
+        if not applied:
+            raise AssertionError(f"train parity: the step on {dev} was not applied")
+        res[dev] = ({k: float(v) for k, v in losses.items()},
+                    {n: p.grad.cpu() for n, p in model.named_parameters() if p.grad is not None})
+    (cpu_l, cpu_g), (gpu_l, gpu_g) = res["cpu"], res["cuda"]
+    loss_err = max(abs(gpu_l[k] / cpu_l[k] - 1) for k in cpu_l)
+    if cpu_g.keys() != gpu_g.keys():
+        raise AssertionError("train parity: different parameters got gradients")
+
+    def excess(n):  # max|d g| over max|g_cpu|; a gradient that is 0 on the CPU must be 0 here
+        diff = (gpu_g[n] - cpu_g[n]).abs().max().item()
+        scale = cpu_g[n.replace("adjacency.bias", "adjacency.weight")].abs().max().item()
+        return diff / scale if scale > 0 else (0.0 if diff == 0 else math.inf)
+
+    worst = max((excess(n), n) for n in cpu_g)
+    log(f"[train parity] fp32 step cuda vs cpu, 64x96 batch 2: losses {cpu_l}, largest relative "
+        f"difference {loss_err:.3e} (rtol 1e-5); {len(cpu_g)} gradients, largest "
+        f"max|d g| / max|g_cpu| {worst[0]:.3e} ({worst[1]}; limit 1e-3)")
+    if loss_err > 1e-5 or worst[0] > 1e-3 or min(cpu_l.values()) <= 0:
+        raise AssertionError("train parity: the step on the card differs from the CPU's")
+
+
+def phase_train(profile_dir):
+    """The training main path through ``entry.train_entry``."""
+    from skghoi_torch.entry import train_entry
+    from skghoi_torch.ops.roi_align_cuda import RoIAlignFunction, roi_align_cuda
+
+    step, (batch, generator) = train_entry(device="cuda")
+    model, opt = step.model, step.optimizer
+    frozen = {n: p.detach().clone() for n, p in model.named_parameters() if not p.requires_grad}
+    stem = ("detector.backbone.conv1.", "detector.backbone.layer1.")
+    if not frozen or any(not n.startswith(stem) for n in frozen):
+        raise AssertionError(f"train: frozen parameters are not the stem and layer1: {sorted(frozen)}")
+    before = [[p.detach().clone() for p in g["params"]] for g in opt.param_groups]
+
+    step(batch, generator)  # warm-up: cuDNN plans, allocator, lazy AdamW state
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    roi_align_cuda.launches = 0
+    RoIAlignFunction.backward_calls = 0
+    times, rows = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        total, losses, out, applied = step(batch, generator)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        rows.append((applied, {k: float(v) for k, v in losses.items()}))
+    launches, adjoints = roi_align_cuda.launches, RoIAlignFunction.backward_calls
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    if not all(a for a, _ in rows) or not all(math.isfinite(v) for _, l in rows for v in l.values()):
+        raise AssertionError(f"train: a step was skipped or a loss is not finite: {rows}")
+    if launches != TRAIN_STEPS or adjoints != TRAIN_STEPS:
+        raise AssertionError(f"train: {launches} kernel launches and {adjoints} adjoints in "
+                             f"{TRAIN_STEPS} steps")
+    for n, p in model.named_parameters():
+        if n in frozen and not torch.equal(p, frozen[n]):
+            raise AssertionError(f"train: frozen parameter {n} changed")
+    moved = [any(not torch.equal(p, q) for p, q in zip(g["params"], b))
+             for g, b in zip(opt.param_groups, before)]
+    if [g["name"] for g in opt.param_groups] != ["detector", "head"] or not all(moved):
+        raise AssertionError(f"train: groups {[g['name'] for g in opt.param_groups]} moved {moved}")
+    median = sorted(times)[len(times) // 2]
+    log(f"[train] bf16 SCG {CANVAS[0]}x{CANVAS[1]} batch {BATCH}, frozen_stages=1, AdamW lr "
+        f"{[g['lr'] for g in opt.param_groups]}: {TRAIN_STEPS} steps, per step ms "
+        f"{[round(t * 1e3, 3) for t in times]}, {BATCH * TRAIN_STEPS / sum(times):.2f} train img/s "
+        f"(median {BATCH / median:.2f}), peak memory {peak_gib:.2f} GiB, roi_align launches "
+        f"{launches}, adjoints {adjoints}, n_h {out.n_h.tolist()} n {out.n.tolist()}")
+    for i, (_, l) in enumerate(rows):
+        log(f"[train] step {i + 1} losses {l}")
+    log(f"[train] frozen stem + layer1 ({len(frozen)} tensors) unchanged; both groups moved; "
+        f"metrics {({k: float(v) for k, v in out.metrics.items()})}")
+
+    # The NaN guard reads one flag on the host, which drains the queue: the
+    # device then idles while the host issues the AdamW update.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    opt.step()
+    issue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    update_ms = cuda_ms(opt.step, iters=5, warmup=1)
+    log(f"[train] AdamW update ({sum(p.numel() for g in opt.param_groups for p in g['params'])} "
+        f"parameters): host issue {issue_ms:.3f} ms after the guard's sync (the device's idle "
+        f"time it causes), device {update_ms:.3f} ms (CUDA events)")
+    result = dict(step_ms=[t * 1e3 for t in times], img_per_s=BATCH * TRAIN_STEPS / sum(times),
+                  median_img_per_s=BATCH / median, peak_gib=peak_gib, launches=launches,
+                  adjoints=adjoints, guard_issue_ms=issue_ms, update_ms=update_ms)
+    if profile_dir:
+        result.update(profile_train_step(step, batch, generator, profile_dir, median))
+    return result
+
+
+def profile_train_step(step, batch, generator, profile_dir, step_s):
+    """One traced train step: device busy time and idle share, top operations."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(profile_dir, exist_ok=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(batch, generator)
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(os.path.join(profile_dir, "scg_bf16_train_step.json"))
+    events = prof.key_averages()
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in device) / 1e3
+    log(events.table(sort_by="self_device_time_total", row_limit=20))
+    idle = max(0.0, 1 - busy_ms / (step_s * 1e3))
+    log(f"[profile] one bf16 train step: device busy {busy_ms:.3f} ms in "
+        f"{sum(e.count for e in device)} device ops; median step {step_s * 1e3:.3f} ms, so the "
+        f"device idles {idle:.1%} of a step")
+    return dict(device_busy_ms=busy_ms, idle_share=idle)
+
+
 @torch.no_grad()
 def profile_forward(model, batch, ovm, profile_dir, request_s):
     """One traced forward (device busy time, kernel count, top ops) and the
@@ -434,11 +705,19 @@ def main() -> int:
 
     b = make_batch(BATCH, CANVAS, device="cuda")
     main_boxes = filter_detections(b.det_boxes, b.det_labels, b.det_scores, b.det_valid).boxes
-    kernel = phase_kernel(main_boxes.contiguous(), baseline)
+    main_boxes = main_boxes.contiguous()
+    kernel = phase_kernel(main_boxes, baseline)
     phase_parity()
     kernel["launches"] = phase_main(REQUESTS, args.profile)
+    adjoint = phase_adjoint(main_boxes)
+    phase_train_parity()
+    train = phase_train(args.profile)
+    kernel["launches_train"] = train["launches"]
+    adjoint["calls_train"] = train["adjoints"]
 
     log(f"[card] {card}")
+    print(json.dumps({"library_ops": [adjoint]}))
+    print(json.dumps({"train": train}))
     print(json.dumps({"kernels": [kernel]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

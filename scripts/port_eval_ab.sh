@@ -1,0 +1,32 @@
+#!/bin/bash
+# Serving throughput of two checkouts of the port, in turns on one card:
+#   scripts/port_eval_ab.sh OTHER_CHECKOUT [REQUESTS]
+# runs chip_smoke.py's main path (phase 4: the bf16 SCG at 832x1344, batch 8)
+# for OTHER_CHECKOUT, this checkout, this checkout, OTHER_CHECKOUT, each in a
+# fresh process, and prints each run's per-request times, img/s, profile and
+# stage times.  OTHER_CHECKOUT is e.g. `git archive` of the parent unpacked
+# into a directory that .gitignore lists.
+set -euo pipefail
+other=$(cd "$1" && pwd)
+here=$(cd "$(dirname "$0")/.." && pwd)
+requests=${2:-20}
+run() {
+  (cd "$1" && REQUESTS="$requests" python3 - <<'PY'
+import os
+import sys
+
+import torch
+
+sys.path.insert(0, os.getcwd())
+import chip_smoke  # noqa: E402
+from skghoi_torch.ops.roi_align_cuda import roi_align_cuda  # noqa: E402
+
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+roi_align_cuda.build()
+print(f"[ab] {os.getcwd()}", flush=True)
+chip_smoke.phase_main(int(os.environ["REQUESTS"]), os.path.join(os.getcwd(), "_ab_profile"))
+PY
+  )
+}
+for d in "$other" "$here" "$here" "$other"; do run "$d"; done

@@ -37,11 +37,26 @@ NUM_MP_ITERATIONS = 2                        # configures/.../main.py:149
 TRANSH_DIM = 50
 TRANSH_P_NORM = 2
 TRANSH_NORM_FLAG = True
+TRANSH_MARGIN = 1.0                          # heads/...head.py:230
 
+# Losses (heads/...head.py:153-235; ops.py:159-203)
+FOCAL_ALPHA = 0.5
+FOCAL_GAMMA_HOI = 0.2
+FOCAL_GAMMA_INTERACTIVENESS = 2.0
+FOCAL_EPS = 1e-6
 FG_IOU_THRESH = 0.5                          # heads/...head.py:604,711-714
+MAX_TRANSH_PAIRS = 64  # cap of sampled TransH positives (and negatives) an image; keeps shapes static
 
-# Prior-score exponent at inference (heads/...head.py:742)
+# Prior-score exponent: 1.0 during training, 2.8 at inference (heads/...head.py:742)
+PRIOR_POWER_TRAIN = 1.0
 PRIOR_POWER_EVAL = 2.8
+
+# Training schedule (configures/.../main.py:122-166)
+LEARNING_RATE = 1e-4
+LR_DECAY_BACKBONE = 0.1
+WEIGHT_DECAY = 1e-4
+LR_MILESTONE_EPOCH = 6
+LR_MILESTONE_GAMMA = 0.1
 
 # Spatial-encoding numerical epsilon (ops.py:87)
 SPATIAL_EPS = 1e-10

@@ -3,7 +3,9 @@
 ``make_batch`` draws the same numbers from the same numpy seed as the JAX
 package's ``__graft_entry__._make_batch``, so both frameworks see the same
 images and detections.  ``entry()`` returns the eval forward on the flagship
-model with a one-image 832x1344 batch, as the JAX ``entry()`` does.
+model with a one-image 832x1344 batch, as the JAX ``entry()`` does;
+``train_entry()`` returns the train step on the batch that ``bench.py
+--train`` uses (832x1344, batch 8, with targets).
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ from skghoi_torch import constants as C
 from skghoi_torch.data.structures import HOIBatch, HOITargets
 from skghoi_torch.device import resolve_device
 from skghoi_torch.models.scg import SpatiallyConditionedGraph
+from skghoi_torch.parallel.train_step import build_train_step
+from skghoi_torch.train.optimizer import build_optimizer
 from skghoi_torch.weights import init_parameters
 
 Device = Optional[Union[str, torch.device]]
@@ -97,3 +101,16 @@ def entry(device: Device = None, dtype: torch.dtype = torch.bfloat16):
         return model(batch, ovm).scores
 
     return fn, (batch,)
+
+
+def train_entry(device: Device = None, dtype: torch.dtype = torch.bfloat16):
+    """``(step, (batch, generator))``: the train step of the flagship model
+    (seeded weights, ``frozen_stages=1``, two-group AdamW at the reference
+    lr, all three losses) on a synthetic 832x1344 batch with targets, and a
+    seeded ``torch.Generator`` on the device for the TransH sampling noise.
+    ``step(batch, generator)`` returns ``(total, losses, out, applied)``."""
+    device = resolve_device(device)
+    model = build_model(dtype=dtype, device=device)
+    step = build_train_step(model, build_optimizer(model), verb_mask(device=device))
+    batch = make_batch(8, C.CANVAS_LANDSCAPE, with_targets=True, device=device)
+    return step, (batch, torch.Generator(device=device).manual_seed(1))

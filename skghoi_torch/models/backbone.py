@@ -22,12 +22,15 @@ Tensor = torch.Tensor
 class DetectorBackbone(nn.Module):
     """backbone -> neck, returning the 4-level pyramid (strides 4, 8, 16, 32).
 
-    Built on ``device`` (default ``cuda``; the CPU only when asked for)."""
+    Built on ``device`` (default ``cuda``; the CPU only when asked for).
+    ``frozen_stages`` and ``remat_stages`` pass through to :class:`ResNet50`."""
 
     def __init__(self, dtype: torch.dtype = torch.float32,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 frozen_stages: int = -1, remat_stages: int = 0):
         super().__init__()
-        self.backbone = ResNet50(dtype=dtype)
+        self.backbone = ResNet50(dtype=dtype, frozen_stages=frozen_stages,
+                                 remat_stages=remat_stages)
         self.neck = FPN(dtype=dtype)
         self.to(device=resolve_device(device), memory_format=torch.channels_last)
 

@@ -1,6 +1,6 @@
-"""Spatially-conditioned graph head over fixed padded pair grids (eval path).
+"""Spatially-conditioned graph head over fixed padded pair grids.
 
-Mirrors the inference path of ``skghoi_tpu.models.graph_head.GraphHead``
+Mirrors ``skghoi_tpu.models.graph_head.GraphHead``
 (the reference GraphHead, ``heads/adamixer_transH_spatial_r50_head.py:586-996``,
 batched onto dense ``[B, H, N, ...]`` tensors with validity masks):
 
@@ -13,14 +13,19 @@ batched onto dense ``[B, H, N, ...]`` tensors with validity masks):
   updated nodes back, so with ``feedback=False`` one pass computes its fixed
   point; ``feedback=True`` iterates ``num_iter`` times;
 - pair features ``[attention_head(h||o, spatial), attention_head_g(global,
-  spatial)]`` and object->verb priors with the eval exponent 2.8.
-
-GT association and TransH pair sampling belong to training and are not here.
+  spatial)]`` and object->verb priors (exponent 1.0 in training, 2.8 at
+  inference);
+- with targets: GT association by pairwise min-IoU >= 0.5 (ref ``:703-719``)
+  and balanced positive/negative TransH (pair, verb) sampling (ref
+  ``:933-963``): positives by a stable descending sort of the 0/1 labels
+  (lower index first among ties, as ``jax.lax.top_k``), negatives by the
+  same sort of Gumbel noise.  The noise is an argument (``gumbel``,
+  ``[B, H*N*K]``) or drawn from a ``torch.Generator``.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -30,6 +35,7 @@ from skghoi_torch import constants as C
 from skghoi_torch.kge.models import TransH
 from skghoi_torch.models.layers import Linear
 from skghoi_torch.models.mbf import MultiBranchFusion
+from skghoi_torch.ops.boxes import box_iou
 from skghoi_torch.ops.spatial import compute_spatial_ratio_encodings
 
 Tensor = torch.Tensor
@@ -39,13 +45,32 @@ class GraphHeadOutputs(NamedTuple):
     pair_features: Tensor  # [B, H, N, 2 * rep]
     pair_valid: Tensor  # [B, H, N] bool (i < n_h, j < n, i != j)
     prior: Tensor  # [B, 2, H, N, K]
+    labels: Optional[Tensor] = None  # [B, H, N, K] binary, with targets only
+    unary_labels: Optional[Tensor] = None  # [B, H, N]
+    transh_pos: Optional[Tensor] = None  # [B, cap] distance scores of positives
+    transh_neg: Optional[Tensor] = None  # [B, cap]
+    transh_mask: Optional[Tensor] = None  # [B, cap] bool
+    transh_pos_dropped: Optional[Tensor] = None  # positives beyond the cap, summed
+
+
+def gumbel_noise(shape, generator: Optional[torch.Generator], device) -> Tensor:
+    """``-log(-log(U))`` with ``U`` uniform in ``[tiny, 1)``, as
+    ``jax.random.gumbel`` draws it (from other bits)."""
+    u = torch.rand(shape, generator=generator, device=device)
+    return -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
+
+
+def _top_indices(x: Tensor, k: int) -> Tensor:
+    """Indices of the ``k`` largest entries of each row, ties to the lower
+    index (``jax.lax.top_k``'s order, on every device)."""
+    return torch.sort(x, dim=-1, descending=True, stable=True).indices[..., :k]
 
 
 def masked_softmax(logits: Tensor, mask: Tensor, dim: int) -> Tensor:
     """Softmax that yields exact zeros on fully-masked rows (no NaNs)."""
     neg = torch.finfo(logits.dtype).min
     z = torch.where(mask, logits, torch.full_like(logits, neg))
-    z = z - z.amax(dim=dim, keepdim=True)
+    z = z - z.amax(dim=dim, keepdim=True).detach()
     e = torch.exp(z) * mask.to(logits.dtype)
     return e / e.sum(dim=dim, keepdim=True).clamp_min(1e-20)
 
@@ -67,6 +92,7 @@ class GraphHead(nn.Module):
         super().__init__()
         ns, rep, card = node_encoding_size, representation_size, C.MBF_CARDINALITY
         self.num_cls = num_cls
+        self.max_transh_pairs = C.MAX_TRANSH_PAIRS
         self.human_idx = human_idx
         self.num_object = num_object
         self.num_iter = num_iter
@@ -102,30 +128,77 @@ class GraphHead(nn.Module):
         x = x.flatten(-3)  # [..., 7, 7, C] -> [..., 7*7*C], channel-minor
         return F.relu(self.box_head_fc2(F.relu(self.box_head_fc1(x))))
 
-    def compute_prior_scores(self, scores: Tensor, labels: Tensor,
-                             object_verb_mask: Tensor) -> Tensor:
-        """``[B, 2, H, N, K]`` eval priors (ref ``:721-767``)."""
+    def compute_prior_scores(self, scores: Tensor, labels: Tensor, object_verb_mask: Tensor,
+                             training: bool = False) -> Tensor:
+        """``[B, 2, H, N, K]`` priors (ref ``:721-767``)."""
         h = self.max_humans
-        s = scores ** C.PRIOR_POWER_EVAL
+        s = scores ** (C.PRIOR_POWER_TRAIN if training else C.PRIOR_POWER_EVAL)
         valid_verbs = object_verb_mask[labels]  # [B, N, K]
         prior_h = s[:, :h, None, None] * valid_verbs[:, None, :, :]
         prior_o = s[:, None, :, None] * valid_verbs[:, None, :, :]
         return torch.stack(torch.broadcast_tensors(prior_h, prior_o), dim=1)
 
-    def _entity_embeddings(self, labels: Tensor):
-        """TransH entity of the human class and of each box's tail."""
+    def associate_with_ground_truth(self, boxes: Tensor, targets) -> Tensor:
+        """``[B, H, N, K]`` binary labels: a pair takes a GT pair's verb when
+        both its boxes overlap the GT's at IoU >= 0.5 (ref ``:703-719``)."""
+        iou_h = box_iou(boxes[:, :self.max_humans], targets.boxes_h)  # [B, H, G]
+        iou_o = box_iou(boxes, targets.boxes_o)  # [B, N, G]
+        pair_hit = ((torch.minimum(iou_h[:, :, None, :], iou_o[:, None, :, :]) >= C.FG_IOU_THRESH)
+                    & targets.valid[:, None, None, :])  # [B, H, N, G]
+        verbs = F.one_hot(targets.labels, self.num_cls).float()  # [B, G, K]
+        return torch.einsum("bhng,bgk->bhnk", pair_hit.float(), verbs).clamp(0.0, 1.0)
+
+    def _tails(self, labels: Tensor) -> Tensor:
+        """TransH tail entity of each box: its object class, or its slot
+        index under the reference quirk."""
         b, n = labels.shape
         if self.quirk_box_index_tails:
             tails = torch.arange(n, device=labels.device).expand(b, n)
         else:
             tails = labels
-        tails = tails.clamp(0, self.num_object - 1)
+        return tails.clamp(0, self.num_object - 1)
+
+    def _entity_embeddings(self, labels: Tensor):
+        """TransH entity of the human class and of each box's tail."""
         emb = self.transh.ent_embeddings
-        return emb.weight[self.human_idx], emb(tails)  # [dim], [B, N, dim]
+        return emb.weight[self.human_idx], emb(self._tails(labels))  # [dim], [B, N, dim]
+
+    def _transh_box_scores(self, labels: Tensor) -> Tensor:
+        """``[B, N, K]`` TransH distance of (human, verb k, tail of box j):
+        it depends on the box and the verb only (ref ``:933-963``)."""
+        tails = self._tails(labels)[..., None].expand(-1, -1, self.num_cls)
+        heads = torch.full_like(tails, self.human_idx)
+        rels = torch.arange(self.num_cls, device=labels.device).expand_as(tails)
+        return self.transh.score(heads, tails, rels)
+
+    def _sample_transh_pairs(self, gumbel: Tensor, transh_pair: Tensor, labels: Tensor,
+                             pair_valid: Tensor):
+        """Balanced positive/negative (pair, verb) selection: up to ``cap``
+        labelled entries and as many valid unlabelled ones at random (the
+        batched form of ref ``:936-943``'s nonzero + randperm)."""
+        b = transh_pair.shape[0]
+        cap = self.max_transh_pairs
+        flat_scores = transh_pair.reshape(b, -1)
+        flat_labels = (labels * pair_valid[..., None]).reshape(b, -1)
+        pv = pair_valid[..., None].expand_as(labels).reshape(b, -1)
+        neg_ok = (flat_labels < 0.5) & pv
+
+        n_labelled = flat_labels.sum(dim=1)
+        pos_idx = _top_indices(flat_labels, cap)
+        pos_mask = torch.arange(cap, device=labels.device)[None, :] < n_labelled.clamp_max(cap)[:, None]
+        neg_logits = torch.where(neg_ok, gumbel, torch.full_like(gumbel, -float("inf")))
+        neg_idx = _top_indices(neg_logits, cap)
+
+        pos = torch.gather(flat_scores, 1, pos_idx)
+        neg = torch.gather(flat_scores, 1, neg_idx)
+        dropped = (n_labelled - cap).clamp_min(0.0).sum()
+        return pos, neg, pos_mask, dropped
 
     def forward(self, global_features: Tensor, box_features: Tensor, boxes: Tensor,
                 labels: Tensor, scores: Tensor, n_h: Tensor, n: Tensor,
-                image_sizes: Tensor, object_verb_mask: Tensor) -> GraphHeadOutputs:
+                image_sizes: Tensor, object_verb_mask: Tensor, targets=None, *,
+                training: bool = False, generator: Optional[torch.Generator] = None,
+                gumbel: Optional[Tensor] = None) -> GraphHeadOutputs:
         b, n_slots = boxes.shape[:2]
         h = self.max_humans
 
@@ -178,6 +251,21 @@ class GraphHead(nn.Module):
         attn2 = self.attention_head_g(global_features[:, None, None, :], spatial)
         pair_features = torch.cat([attn1, attn2], dim=-1)  # [B, H, N, 2*rep]
 
-        prior = self.compute_prior_scores(scores, labels, object_verb_mask)
+        prior = self.compute_prior_scores(scores, labels, object_verb_mask, training)
         prior = prior * pair_valid[:, None, :, :, None]
-        return GraphHeadOutputs(pair_features, pair_valid, prior)
+        if targets is None:
+            return GraphHeadOutputs(pair_features, pair_valid, prior)
+
+        # --- targets: labels and TransH samples (ref :933-963) ----------------
+        gt_labels = self.associate_with_ground_truth(boxes, targets) * pair_valid[..., None]
+        unary = gt_labels.sum(dim=-1).clamp(0.0, 1.0)
+        k = self.num_cls
+        transh_pair = self._transh_box_scores(labels)[:, None].expand(b, h, n_slots, k)
+        if gumbel is None:
+            if generator is None:
+                generator = torch.Generator(device=dev).manual_seed(0)
+            gumbel = gumbel_noise((b, h * n_slots * k), generator, dev)
+        pos, neg, mask, dropped = self._sample_transh_pairs(gumbel, transh_pair, gt_labels,
+                                                            pair_valid)
+        return GraphHeadOutputs(pair_features, pair_valid, prior, gt_labels, unary, pos, neg, mask,
+                                dropped)

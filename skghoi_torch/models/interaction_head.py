@@ -1,29 +1,39 @@
-"""Interaction head: detection filtering, RoI pooling, pair classification.
+"""Interaction head: detection filtering, RoI pooling, classification, losses.
 
-Mirrors the inference path of ``skghoi_tpu.models.interaction_head``:
+Mirrors ``skghoi_tpu.models.interaction_head``:
 
 - :func:`filter_detections` — the reference ``preprocess``
   (``heads/adamixer_transH_spatial_r50_head.py:92-151``): score threshold,
   class-wise NMS, score-sorted, capped at 15 humans + 15 objects with humans
-  packed first, into fixed ``[B, 30]`` slots.  Batched, no host sync.
-- :class:`InteractionHead` — multi-scale RoIAlign (the CUDA kernel on the
-  card), GraphHead, pair predictor/suppressor, and the composite score
-  ``sigmoid(logit_p) * prior_h * prior_o * sigmoid(logit_s)``.
-
-The losses belong to training and are not here.
+  packed first, into fixed ``[B, 30]`` slots.  Batched, no host sync.  In
+  training the ground-truth boxes join the pool ahead of the detections at
+  score 1.0.
+- :class:`InteractionHead` — multi-scale RoIAlign (the CUDA kernel and its
+  adjoint on the card), GraphHead, pair predictor/suppressor, the composite
+  score ``sigmoid(logit_p) * prior_h * prior_o * detach(sigmoid(logit_s))``
+  and, in training, the three losses (ref ``:153-235``): focal (gamma 0.2) on
+  the composite scores over nonzero-prior entries, focal interactiveness
+  (gamma 2.0) on the suppressor over valid pairs, and TransH margin ranking,
+  each over its positive count.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
 
 from skghoi_torch import constants as C
-from skghoi_torch.models.graph_head import GraphHead
+from skghoi_torch.data.structures import HOITargets
+from skghoi_torch.models.graph_head import GraphHead, GraphHeadOutputs
 from skghoi_torch.models.layers import Linear
 from skghoi_torch.ops.boxes import batched_nms_keep
+from skghoi_torch.ops.losses import (
+    binary_focal_loss,
+    binary_focal_loss_with_logits,
+    margin_ranking_loss,
+)
 from skghoi_torch.ops.roi_align_cuda import roi_align_auto
 
 Tensor = torch.Tensor
@@ -49,6 +59,10 @@ class InteractionOutputs(NamedTuple):
     object_class: Tensor  # [B, N]
     n_h: Tensor
     n: Tensor
+    labels: Optional[Tensor] = None  # [B, H, N, K], with targets only
+    unary_labels: Optional[Tensor] = None  # [B, H, N]
+    losses: Optional[dict] = None  # hoi_loss, interactiveness_loss, transh_loss (training)
+    metrics: Optional[dict] = None  # transh_pos_dropped (training)
 
 
 def filter_detections(boxes: Tensor, labels: Tensor, scores: Tensor, valid: Tensor,
@@ -56,9 +70,21 @@ def filter_detections(boxes: Tensor, labels: Tensor, scores: Tensor, valid: Tens
                       box_score_thresh: float = C.BOX_SCORE_THRESH,
                       box_nms_thresh: float = C.BOX_NMS_THRESH,
                       max_human: int = C.MAX_HUMAN,
-                      max_object: int = C.MAX_OBJECT) -> FilteredDetections:
-    """Batched detection filter ``[B, M] -> [B, max_human + max_object]``."""
+                      max_object: int = C.MAX_OBJECT,
+                      targets: Optional[HOITargets] = None) -> FilteredDetections:
+    """Batched detection filter ``[B, M] -> [B, max_human + max_object]``.
+
+    With ``targets``, the ground-truth human and object boxes go ahead of the
+    detections with score 1.0 (training, ref ``:104-116``), so they survive
+    the threshold and sort to the front."""
     n_slots = max_human + max_object
+    if targets is not None:
+        gt_scores = targets.valid.to(scores.dtype)
+        boxes = torch.cat([targets.boxes_h, targets.boxes_o, boxes], dim=1)
+        scores = torch.cat([gt_scores, gt_scores, scores], dim=1)
+        labels = torch.cat([torch.full_like(targets.object, human_idx).to(labels.dtype),
+                            targets.object.to(labels.dtype), labels], dim=1)
+        valid = torch.cat([targets.valid, targets.valid, valid], dim=1)
     valid = valid & (scores >= box_score_thresh)
     keep = batched_nms_keep(boxes, scores, labels, valid, box_nms_thresh)
 
@@ -111,7 +137,9 @@ class InteractionHead(nn.Module):
         self.box_pair_suppressor = Linear(2 * representation_size, 1, dtype=dtype)
 
     def forward(self, fpn_features, detections: FilteredDetections, image_sizes: Tensor,
-                object_verb_mask: Tensor) -> InteractionOutputs:
+                object_verb_mask: Tensor, targets: Optional[HOITargets] = None, *,
+                training: bool = False, generator: Optional[torch.Generator] = None,
+                gumbel: Optional[Tensor] = None) -> InteractionOutputs:
         boxes, obj_labels, obj_scores, n_h, n = detections
 
         box_features = roi_align_auto(fpn_features, boxes)  # [B, N, 7, 7, C]
@@ -119,13 +147,38 @@ class InteractionHead(nn.Module):
         global_features = fpn_features[3].mean(dim=(1, 2))
 
         gh = self.box_pair_head(global_features, box_features, boxes, obj_labels, obj_scores,
-                                n_h, n, image_sizes, object_verb_mask)
+                                n_h, n, image_sizes, object_verb_mask, targets,
+                                training=training, generator=generator, gumbel=gumbel)
 
         logits_p = self.box_pair_predictor(gh.pair_features)  # [B, H, N, K]
-        weights = torch.sigmoid(self.box_pair_suppressor(gh.pair_features)[..., 0])  # [B, H, N]
-        # Final action score (ref :315-316), on nonzero-prior entries only.
-        scores = torch.sigmoid(logits_p) * (gh.prior[:, 0] * gh.prior[:, 1]) * weights[..., None]
-        scores = torch.where(gh.prior[:, 0] > 0, scores, torch.zeros((), device=scores.device))
+        logits_s = self.box_pair_suppressor(gh.pair_features)[..., 0]  # [B, H, N]
+        weights = torch.sigmoid(logits_s)
+        # Final action score (ref :315-316), suppressor weight detached, on
+        # nonzero-prior entries only.
+        scores = (torch.sigmoid(logits_p) * (gh.prior[:, 0] * gh.prior[:, 1])
+                  * weights.detach()[..., None])
+        valid_entries = gh.prior[:, 0] > 0
+        scores = torch.where(valid_entries, scores, torch.zeros((), device=scores.device))
 
+        losses = metrics = None
+        if training and targets is not None:
+            losses = self._compute_losses(scores, logits_s, gh, valid_entries)
+            metrics = dict(transh_pos_dropped=gh.transh_pos_dropped)
         return InteractionOutputs(scores, logits_p, weights, gh.prior, gh.pair_valid, boxes,
-                                  obj_labels, n_h, n)
+                                  obj_labels, n_h, n, gh.labels, gh.unary_labels, losses, metrics)
+
+    def _compute_losses(self, scores: Tensor, logits_s: Tensor, gh: GraphHeadOutputs,
+                        valid_entries: Tensor) -> dict:
+        """The three losses (ref ``:153-235``), each summed over its entries
+        and divided by its positive count (at least 1)."""
+        n_p_cls = (gh.labels * valid_entries).sum().clamp_min(1.0)
+        hoi_loss = binary_focal_loss(scores, gh.labels, gamma=C.FOCAL_GAMMA_HOI,
+                                     reduction="sum", mask=valid_entries) / n_p_cls
+        n_p_unary = (gh.unary_labels * gh.pair_valid).sum().clamp_min(1.0)
+        interactiveness_loss = binary_focal_loss_with_logits(
+            logits_s, gh.unary_labels, gamma=C.FOCAL_GAMMA_INTERACTIVENESS, reduction="sum",
+            mask=gh.pair_valid) / n_p_unary
+        transh_loss = margin_ranking_loss(gh.transh_pos, gh.transh_neg, margin=C.TRANSH_MARGIN,
+                                          mask=gh.transh_mask) / n_p_unary
+        return dict(hoi_loss=hoi_loss, interactiveness_loss=interactiveness_loss,
+                    transh_loss=transh_loss)

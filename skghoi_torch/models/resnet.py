@@ -1,10 +1,13 @@
 """ResNet-50 with frozen BatchNorm, torchvision layout, channels_last.
 
-Mirrors ``skghoi_tpu.models.resnet.ResNet50`` at inference: a plain 7x7/2
-stem (the space-to-depth stem and the ``nn.scan`` tail blocks there are TPU
-compile levers with identical math), BatchNorm that always uses its stored
-statistics, and the C2..C5 outputs at strides 4, 8, 16, 32.  Module names
-follow torchvision's ``resnet50`` so its checkpoints load by name.
+Mirrors ``skghoi_tpu.models.resnet.ResNet50``: a plain 7x7/2 stem (the
+space-to-depth stem and the ``nn.scan`` tail blocks there are TPU compile
+levers with identical math), BatchNorm that always uses its stored statistics
+(all four of its terms are buffers, so no optimizer sees them), the C2..C5
+outputs at strides 4, 8, 16, 32, mmdet's ``frozen_stages`` and
+``remat_stages`` (activation recomputation, ``torch.utils.checkpoint``).
+Module names follow torchvision's ``resnet50`` so its checkpoints load by
+name.
 
 Tensors are NCHW in ``torch.channels_last`` memory, which cuDNN runs natively
 and which permutes to a contiguous NHWC view for free.
@@ -17,6 +20,7 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from skghoi_torch.models.layers import Conv2d
 
@@ -75,12 +79,23 @@ class Bottleneck(nn.Module):
 
 
 class ResNet50(nn.Module):
-    """Returns C2..C5 (strides 4, 8, 16, 32) as NCHW channels_last tensors."""
+    """Returns C2..C5 (strides 4, 8, 16, 32) as NCHW channels_last tensors.
+
+    ``frozen_stages`` has mmdet's meaning: -1 trains everything, 0 freezes
+    the stem, ``k`` the stem and ``layer1..layer{k}``.  Frozen parameters get
+    ``requires_grad=False`` and the activation is detached at the frozen
+    prefix's boundary, so no backward runs through it.  ``remat_stages``
+    (1-based, 0 = off) recomputes each bottleneck of that stage and later
+    ones in the backward instead of keeping its activations.
+    """
 
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3),
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, frozen_stages: int = -1,
+                 remat_stages: int = 0):
         super().__init__()
         self.compute_dtype = dtype
+        self.frozen_stages = frozen_stages
+        self.remat_stages = remat_stages
         self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False, dtype=dtype)
         self.bn1 = FrozenBatchNorm(64, dtype=dtype)
         in_ch = 64
@@ -90,13 +105,25 @@ class ResNet50(nn.Module):
                 layer.append(Bottleneck(in_ch, width, 2 if (b == 0 and stage > 0) else 1, dtype))
                 in_ch = width * 4
             setattr(self, f"layer{stage + 1}", nn.Sequential(*layer))
+        if frozen_stages >= 0:
+            self.conv1.requires_grad_(False)
+        for stage in range(1, frozen_stages + 1):
+            getattr(self, f"layer{stage}").requires_grad_(False)
 
     def forward(self, x: Tensor) -> Tuple[Tensor, ...]:
         x = x.to(self.compute_dtype).contiguous(memory_format=torch.channels_last)
         x = F.relu(self.bn1(self.conv1(x)))
         x = F.max_pool2d(x, 3, stride=2, padding=1)
+        if self.frozen_stages >= 0:
+            x = x.detach()
         outputs = []
-        for layer in (self.layer1, self.layer2, self.layer3, self.layer4):
-            x = layer(x)
+        for stage, layer in enumerate((self.layer1, self.layer2, self.layer3, self.layer4), 1):
+            if self.remat_stages and stage >= self.remat_stages and torch.is_grad_enabled():
+                for block in layer:
+                    x = checkpoint(block, x, use_reentrant=False)
+            else:
+                x = layer(x)
+            if self.frozen_stages >= stage:
+                x = x.detach()
             outputs.append(x)
         return tuple(outputs)

@@ -1,11 +1,12 @@
-"""The full Spatially-Conditioned Graph HOI network, inference forward.
+"""The full Spatially-Conditioned Graph HOI network.
 
-Mirrors ``skghoi_tpu.models.scg.SpatiallyConditionedGraph`` with
-``training=False``: ImageNet normalisation in the model dtype -> ResNet-50 +
-FPN -> detection filtering (threshold / NMS / caps) -> interaction head.  The
-forward takes an :class:`~skghoi_torch.data.structures.HOIBatch` of tensors
-on the model's device and returns fixed-shape outputs (scores
-``[B, 15, 30, 117]``).
+Mirrors ``skghoi_tpu.models.scg.SpatiallyConditionedGraph``: ImageNet
+normalisation in the model dtype -> ResNet-50 + FPN -> detection filtering
+(threshold / NMS / caps) -> interaction head.  The forward takes an
+:class:`~skghoi_torch.data.structures.HOIBatch` of tensors on the model's
+device and returns fixed-shape outputs (scores ``[B, 15, 30, 117]``); with
+``training=True`` and targets in the batch, also the three losses.  As in
+JAX, ``training`` is an argument of the call, not ``module.training``.
 """
 
 from __future__ import annotations
@@ -32,6 +33,8 @@ class SpatiallyConditionedGraph(nn.Module):
     """Built on ``device`` (default ``cuda``; the CPU only when asked for).
 
     Parameters are float32; activations and products run in ``dtype``.
+    ``frozen_stages=1`` (the stem and ``layer1`` frozen) is the reference's
+    mmdet backbone setting.
     """
 
     def __init__(self, num_classes: int = C.HICO_NUM_VERBS, human_idx: int = C.HICO_HUMAN_IDX,
@@ -41,7 +44,8 @@ class SpatiallyConditionedGraph(nn.Module):
                  max_object: int = C.MAX_OBJECT, num_iterations: int = C.NUM_MP_ITERATIONS,
                  feedback: bool = False, quirk_box_index_tails: bool = False,
                  dtype: torch.dtype = torch.float32,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None, frozen_stages: int = 1,
+                 remat_stages: int = 0):
         super().__init__()
         device = resolve_device(device)
         self.human_idx = human_idx
@@ -50,14 +54,19 @@ class SpatiallyConditionedGraph(nn.Module):
         self.max_human = max_human
         self.max_object = max_object
         self.compute_dtype = dtype
-        self.detector = DetectorBackbone(dtype=dtype, device=device)
+        self.detector = DetectorBackbone(dtype=dtype, device=device, frozen_stages=frozen_stages,
+                                         remat_stages=remat_stages)
         self.interaction_head = InteractionHead(
             num_cls=num_classes, human_idx=human_idx, num_object=num_object,
             num_iter=num_iterations, max_humans=max_human, feedback=feedback,
             quirk_box_index_tails=quirk_box_index_tails, dtype=dtype,
         ).to(device)
 
-    def forward(self, batch: HOIBatch, object_verb_mask: Tensor) -> InteractionOutputs:
+    def forward(self, batch: HOIBatch, object_verb_mask: Tensor, *, training: bool = False,
+                generator: Optional[torch.Generator] = None,
+                gumbel: Optional[Tensor] = None) -> InteractionOutputs:
+        """``generator`` or ``gumbel`` (``[B, 15*30*117]``) supply the TransH
+        negative-sampling noise in training."""
         dt = self.compute_dtype
         mean = torch.tensor(C.IMAGE_MEAN, dtype=dt, device=batch.images.device)
         std = torch.tensor(C.IMAGE_STD, dtype=dt, device=batch.images.device)
@@ -69,5 +78,16 @@ class SpatiallyConditionedGraph(nn.Module):
             human_idx=self.human_idx, box_score_thresh=self.box_score_thresh,
             box_nms_thresh=self.box_nms_thresh, max_human=self.max_human,
             max_object=self.max_object,
+            # GT boxes join the candidate pool only in training (ref :104-116).
+            targets=batch.targets if training else None,
         )
-        return self.interaction_head(features, detections, batch.image_sizes, object_verb_mask)
+        return self.interaction_head(features, detections, batch.image_sizes, object_verb_mask,
+                                     batch.targets, training=training, generator=generator,
+                                     gumbel=gumbel)
+
+    @staticmethod
+    def total_loss(outputs: InteractionOutputs) -> Tensor:
+        """Sum of the three losses (engine semantics, ``utils.py:221``)."""
+        if outputs.losses is None:
+            raise ValueError("no losses: call the model with training=True and targets")
+        return sum(outputs.losses.values())

@@ -1,1 +1,1 @@
-"""Box numerics, spatial encodings and multi-scale RoIAlign (plain and CUDA)."""
+"""Box numerics, spatial encodings, losses and multi-scale RoIAlign (plain, CUDA, adjoint)."""

@@ -13,6 +13,12 @@ Mirrors ``skghoi_tpu.ops.roi_align`` batched over images: torchvision
 
 This is the plain version of the CUDA kernel in ``roi_align_cuda``: the CPU
 path, and what the kernel is held against on the card.  Maps are NHWC.
+
+:func:`roi_align_adjoint` is the gradient with respect to the maps, the
+counterpart of ``skghoi_tpu/ops/pallas_roi_align.py::_roi_backward``: per
+level, ``dF = A_y^T dOut A_x`` as two batched GEMMs over whole-level
+interpolation matrices (:func:`level_axis_weights`).  It is what the CUDA
+kernel's ``autograd.Function`` runs in its backward, on the card too.
 """
 
 from __future__ import annotations
@@ -113,3 +119,67 @@ def multiscale_roi_align(feature_maps: Sequence[Tensor], boxes: Tensor,
         sel = (levels == l)[..., None, None, None]
         out = torch.where(sel, pooled, torch.zeros((), device=pooled.device) if out is None else out)
     return out.to(feature_maps[0].dtype)
+
+
+def level_axis_weights(start: Tensor, roi_len: Tensor, size, window: int,
+                       pooled: int = ROI_POOL_SIZE,
+                       sampling_ratio: int = ROI_SAMPLING_RATIO) -> Tensor:
+    """Interpolation matrix of one axis over whole levels, ``[...] ->
+    [..., pooled, window]`` float32: each bin's row holds the bilinear
+    weights of its ``sampling_ratio`` samples on the level's cells, averaged
+    (zero for a sample outside ``[-1, size]``).  ``size`` (an int, or a
+    tensor that broadcasts against ``start[..., None]``) is the level's
+    extent; cells from ``size`` to ``window`` get no weight.  ``_axis_weights``
+    of the JAX package with ``origin=0`` and ``window=size``."""
+    low, high, w_low, w_high, oob = _sample_axis(start, roi_len, size, pooled, sampling_ratio)
+    cells = torch.arange(window, device=start.device)
+    w = torch.where(oob, torch.zeros((), device=start.device), w_low)[..., None] * (cells == low[..., None])
+    w = w + torch.where(oob, torch.zeros((), device=start.device), w_high)[..., None] * (cells == high[..., None])
+    return w.unflatten(-2, (pooled, sampling_ratio)).sum(dim=-2) / sampling_ratio
+
+
+def roi_align_adjoint(map_shapes: Sequence[Sequence[int]], map_dtype: torch.dtype,
+                      boxes: Tensor, grad_out: Tensor,
+                      strides: Sequence[int] = FPN_STRIDES) -> tuple:
+    """Gradient of :func:`multiscale_roi_align` with respect to the four maps.
+
+    ``map_shapes`` are the ``[B, H_l, W_l, C]`` shapes, ``grad_out`` the
+    ``[B, N, 7, 7, C]`` cotangent.  Per level, ``t = A_x^T g``
+    (``[B, N, 7, W, C]``) and ``dF = A_y^T t`` summed over the boxes and
+    bins (``[B, H, W, C]``): two batched GEMMs, in float32 on the float32
+    cotangent, cast to ``map_dtype`` at the end, as ``_roi_backward`` does.
+    Boxes assigned to another level contribute nothing (their ``A_y`` rows
+    are zeroed, where JAX zeroes their cotangent: the same sum).  The
+    interpolation matrices of all levels and both axes come from one
+    vectorised pass.  Only the boxes and the shapes are needed, never the
+    map values; the boxes get no gradient.
+    """
+    bsz, n = boxes.shape[:2]
+    p = grad_out.shape[2]
+    n_levels = len(strides)
+    dev = boxes.device
+    g = grad_out.float()
+    # Strides and level extents in one copy; pinned, because a copy from
+    # pageable memory waits for the stream to drain.
+    consts = torch.tensor([*strides, *(s[1] for s in map_shapes), *(s[2] for s in map_shapes)])
+    consts = (consts.pin_memory() if dev.type == "cuda" else consts).to(dev, non_blocking=True)
+    stride = consts[:n_levels].float().view(1, n_levels, 1, 1)
+    sizes = consts[n_levels:].view(2, n_levels, 1, 1, 1)  # [axis (y, x), level]
+    # [y1, x1, y2, x2] of every box on every level: [4, L, B, N].
+    corners = boxes.unflatten(-1, (2, 2)).flip(-1).flatten(-2).permute(2, 0, 1)[:, None] / stride
+    start, roi_len = corners[:2], (corners[2:] - corners[:2]).clamp_min(1.0)
+    window = max(max(s[1], s[2]) for s in map_shapes)
+    weights = level_axis_weights(start, roi_len, sizes, window, p)  # [2, L, B, N, 7, window]
+    levels = fpn_level_assignment(boxes)
+    on_level = levels == torch.arange(n_levels, device=dev)[:, None, None]  # [L, B, N]
+    ay = weights[0] * on_level[..., None, None]
+    grads = []
+    for l, (_, h, w, c) in enumerate(map_shapes):
+        ax = weights[1, l, ..., :w]  # [B, N, 7q, W]
+        # t[b, n, p] = A_x[b, n]^T @ g[b, n, p]: [W, 7q] @ [7q, C]
+        t = torch.matmul(ax.transpose(-1, -2)[:, :, None], g)  # [B, N, 7p, W, C]
+        # dF[b] = sum over (n, p) of A_y[b, n, p]^T t[b, n, p]: [H, N*7] @ [N*7, W*C]
+        a = ay[l, ..., :h].reshape(bsz, n * p, h)
+        dfm = torch.matmul(a.transpose(1, 2), t.reshape(bsz, n * p, w * c))
+        grads.append(dfm.view(bsz, h, w, c).to(map_dtype))
+    return tuple(grads)

@@ -1,4 +1,5 @@
-"""Multi-scale RoIAlign as a hand-written CUDA kernel, and its dispatch.
+"""Multi-scale RoIAlign as a hand-written CUDA kernel, its gradient, and its
+dispatch.
 
 The kernel (``skghoi_torch/csrc/roi_align.cu``) replaces the Pallas TPU kernel
 ``skghoi_tpu/ops/pallas_roi_align.py::pallas_multiscale_roi_align`` together
@@ -11,13 +12,16 @@ says how, and what limits it now).
 
 The source is compiled with ``nvcc`` for ``sm_90a`` into a shared library with
 a plain C interface on first use, into ``skghoi_torch/_build/`` (ignored by
-git), and loaded with ``ctypes``.  Inference only: the adjoint comes with the
-training slice, so inputs that require grad are refused.
+git), and loaded with ``ctypes``.  A direct call of the kernel refuses inputs
+that require grad; :class:`RoIAlignFunction` is the differentiable form: its
+forward launches the kernel, its backward is
+:func:`skghoi_torch.ops.roi_align.roi_align_adjoint` (the JAX package's
+``_roi_backward``, XLA einsums there, batched GEMMs here) on the same device.
 
-:func:`roi_align_auto` launches the kernel for CUDA tensors and runs the plain
-gather version (:func:`skghoi_torch.ops.roi_align.multiscale_roi_align`) for
-CPU tensors.  A CUDA tensor never falls back: the kernel launches or the
-wrapper raises.
+:func:`roi_align_auto` runs :class:`RoIAlignFunction` for CUDA tensors and the
+plain gather version (:func:`skghoi_torch.ops.roi_align.multiscale_roi_align`,
+differentiated by autograd) for CPU tensors.  A CUDA tensor never falls back:
+the kernel launches or the wrapper raises.
 """
 
 from __future__ import annotations
@@ -34,7 +38,11 @@ from typing import Optional, Sequence
 import torch
 
 from skghoi_torch.constants import FPN_STRIDES, ROI_POOL_SIZE
-from skghoi_torch.ops.roi_align import fpn_level_assignment, multiscale_roi_align
+from skghoi_torch.ops.roi_align import (
+    fpn_level_assignment,
+    multiscale_roi_align,
+    roi_align_adjoint,
+)
 
 Tensor = torch.Tensor
 
@@ -171,7 +179,8 @@ def _check_inputs(maps, boxes: Tensor, strides) -> None:
     if any(t.data_ptr() % 16 for t in (boxes, *maps)):
         problems.append("boxes and feature maps must be 16-byte aligned")
     if boxes.requires_grad or any(fm.requires_grad for fm in maps):
-        problems.append("roi_align kernel is forward only; call it under torch.no_grad()")
+        problems.append("the roi_align kernel has no gradient of its own; call it under "
+                        "torch.no_grad(), or through RoIAlignFunction")
     if problems:
         raise ValueError("; ".join(problems))
 
@@ -179,10 +188,39 @@ def _check_inputs(maps, boxes: Tensor, strides) -> None:
 roi_align_cuda = RoIAlignKernel()
 
 
+class RoIAlignFunction(torch.autograd.Function):
+    """The kernel as an autograd node: ``apply(boxes, *maps)``.
+
+    Forward launches :data:`roi_align_cuda` on the maps (detached views: no
+    copy, NHWC contiguity kept).  Backward runs :func:`roi_align_adjoint`,
+    which needs only the boxes and the maps' shapes, so nothing else is
+    saved; it returns contiguous ``[B, H_l, W_l, C]`` gradients in the maps'
+    dtype and none for the boxes.  ``backward_calls`` counts backward passes.
+    """
+
+    backward_calls = 0
+
+    @staticmethod
+    def forward(ctx, boxes: Tensor, *maps: Tensor) -> Tensor:
+        out = roi_align_cuda([fm.detach() for fm in maps], boxes.detach())
+        ctx.map_shapes = [tuple(fm.shape) for fm in maps]
+        ctx.map_dtype = maps[0].dtype
+        ctx.save_for_backward(boxes)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out: Tensor):
+        (boxes,) = ctx.saved_tensors
+        RoIAlignFunction.backward_calls += 1
+        grads = roi_align_adjoint(ctx.map_shapes, ctx.map_dtype, boxes, grad_out)
+        return (None, *grads)
+
+
 def roi_align_auto(feature_maps: Sequence[Tensor], boxes: Tensor) -> Tensor:
-    """The CUDA kernel for CUDA tensors, the plain gather version for CPU tensors."""
+    """:class:`RoIAlignFunction` (the kernel, and its adjoint) for CUDA
+    tensors, the plain gather version for CPU tensors."""
     if boxes.device.type == "cuda":
-        return roi_align_cuda(feature_maps, boxes)
+        return RoIAlignFunction.apply(boxes, *feature_maps)
     if boxes.device.type != "cpu":
         raise ValueError(f"unsupported device {boxes.device}")
     return multiscale_roi_align(feature_maps, boxes)

@@ -1,0 +1,61 @@
+"""The train step: forward with targets, three losses, backward, guarded AdamW.
+
+Mirrors ``skghoi_tpu.parallel.train_step.build_train_step`` (the reference's
+per-iteration hot path, ``utils.py:213-229``), in the same order: the
+forward with ``training=True``, the selected losses summed, the backward
+(through the CUDA RoIAlign kernel's adjoint on the card), and the AdamW
+update, applied only when the total loss and every gradient are finite.  A
+skipped update leaves the parameters, the AdamW moments and step counts and
+the schedule's count exactly as they were; the gradients are zeroed.
+
+The guard reads one flag on the host per step: the step waits there for the
+backward to finish before it issues the update (``PERF.md`` gives the cost).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional, Sequence
+
+import torch
+
+ALL_LOSSES = ("hoi_loss", "interactiveness_loss", "transh_loss")
+
+
+def build_train_step(model, optimizer: torch.optim.Optimizer, object_verb_mask: torch.Tensor,
+                     loss_keys: Optional[Sequence[str]] = None) -> Callable:
+    """Returns ``step(batch, generator=None, gumbel=None) -> (total, losses,
+    out, applied)``, with ``step.model`` and ``step.optimizer`` attached.
+
+    ``loss_keys`` selects the losses that drive the gradients, as the
+    reference's engine variants do (``utils.py:200-424``): all three by
+    default; ``("transh_loss",)`` is ``transH_CustomisedDLE``;
+    ``("hoi_loss", "interactiveness_loss")`` is ``OriginalCustomisedDLE``.
+    Every parameter of the optimizer gets a gradient each step (zeros where
+    the selected losses do not reach it), so AdamW decays and updates its
+    moments for all of them, as optax does.
+    """
+    keys = tuple(loss_keys) if loss_keys else ALL_LOSSES
+    params = [p for group in optimizer.param_groups for p in group["params"]]
+
+    def step(batch, generator: Optional[torch.Generator] = None,
+             gumbel: Optional[torch.Tensor] = None):
+        optimizer.zero_grad(set_to_none=False)
+        out = model(batch, object_verb_mask, training=True, generator=generator, gumbel=gumbel)
+        total = sum(out.losses[k] for k in keys)
+        total.backward()
+        for p in params:  # first step: parameters the selected losses do not reach
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in params]
+        # The largest |g| of each tensor: NaN or inf if any entry is.
+        peaks = torch.stack(torch._foreach_norm(grads, float("inf")))
+        applied = bool(torch.isfinite(total) & torch.isfinite(peaks).all())
+        if applied:
+            optimizer.step()
+        else:
+            optimizer.zero_grad(set_to_none=False)
+        losses = {k: v.detach() for k, v in out.losses.items()}
+        return total.detach(), losses, out, applied
+
+    step.model, step.optimizer = model, optimizer
+    return step

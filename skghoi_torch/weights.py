@@ -13,6 +13,11 @@ package's ``{"params", "batch_stats"}`` trees.
   TransH embedding tables;
 - ResNet blocks in either JAX layout: unrolled ``layer{s}_block{b}`` or
   scanned ``layer{s}_rest`` (tail blocks stacked on axis 0).
+
+A gradient tree (``jax.grad`` over ``params``: the same structure) maps the
+same way, as ``to_state_dict({"params": grads})``: each gradient lands under
+the name of the port parameter it belongs to (frozen-BN terms land on the
+port's buffers, which take no gradient).
 """
 
 from __future__ import annotations
