@@ -13,7 +13,9 @@ Phases, each reporting on its own lines; any failure exits non-zero:
    the main path gives it, edge/degenerate/window-overflow boxes, boxes with
    the largest distinct sample grid on each level, boxes on every map edge,
    a batch of padding slots only, B=1, N=1, and 600 random boxes an image
-   (more work items than the kernel plans an order for).  Then timed with
+   (more work items than the kernel plans an order for); and on the portrait
+   1344x832 pyramid (C=256, batch 8), where portrait images go, the main
+   path's boxes and the map-edge boxes transposed.  Then timed with
    CUDA events on the main path's inputs: the kernel alone with a cold L2
    (successive calls rotate over copies of the pyramid), the same warm, on
    padding slots only, the call with its level assignment, the eager call
@@ -54,9 +56,27 @@ Phases, each reporting on its own lines; any failure exits non-zero:
    memory, the losses, and what the NaN guard's host read costs.
    ``--profile`` adds one traced train step (device busy and idle share, top
    operations).
+8. The CLI path: synthetic HICO-DET written by ``data.synthetic`` (16
+   landscape training images at 480x640, resized to 800x1066 in the 832x1344
+   canvas; 8 portrait test images at 640x480), then
+   ``tools.train_hicodet.main`` at full width in float32 (TF32 off), batch
+   8, 2 epochs with validation on the portrait split, 4 loader workers, with
+   the counts set to 0 just before: it checks two ``Epoch:`` lines, finite
+   losses, ``ckpt_01.pt`` and ``ckpt_02.pt``, one kernel launch per train
+   step and per validation batch and one adjoint per train step; resumes
+   from ``ckpt_01.pt`` (epoch, applied steps, lr, parameters and AdamW
+   moments equal to the file) and traces one more epoch (the device's idle
+   share); runs ``tools.test_hicodet.main`` with ``ckpt_02.pt`` (full, rare
+   and non-rare mAP finite, in [0, 1]); holds ``device_resize_canvas`` on the
+   card against itself on the CPU (atol 1e-6) and against the host
+   ``prepare_image`` on these images (atol 2e-5 plus the float32 resize
+   ratio's position error, ``(h + w) * 2^-24``); times the host stages of a
+   batch (decode, resize, collate, pinned copy); and trains one
+   ``--device-resize`` epoch.  Prints loader-inclusive train img/s, eval
+   img/s, idle share, peak memory and the launch counts.
 
-It prints the adjoint's and the train step's JSON lines, the kernels' JSON
-line, the card, then ``{"ok": true, "device": ...}`` last.  Without a CUDA
+It prints the adjoint's, the train step's and the CLI path's JSON lines, the
+kernels' JSON line, the card, then ``{"ok": true, "device": ...}`` last.  Without a CUDA
 device it exits with code 2 and prints no result.
 """
 
@@ -77,11 +97,14 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOPS_PER_S = 67e12   # H100 SXM, outside the tensor cores
 FP32_TOL = 1e-5  # kernel vs plain, float32: 20x the largest error measured (PERF.md)
 CANVAS = (832, 1344)
+PORTRAIT = (1344, 832)
 BATCH = 8
 REQUESTS = 5  # main-path forward requests (the contract asks for at least 3)
 TRAIN_STEPS = 5  # timed train steps of the training main path
 ADJOINT_TOL = dict(rtol=1e-3, atol=1e-4)  # tests/test_pallas_roi_align.py:106-129
 PARITY_SEED = 0  # weights of the train-step parity phase
+CLI_TRAIN_IMAGES = 16  # phase 8: landscape training images (2 steps an epoch)
+CLI_TEST_IMAGES = 8    # phase 8: portrait validation / test images (1 batch)
 
 EDGE_BOXES = [  # tests/test_pallas_roi_align.py: edge, extreme and overflow fixtures
     [0.0, 0.0, 383.0, 255.0], [-20.0, -20.0, 30.0, 30.0], [370.0, 240.0, 383.0, 255.0],
@@ -274,9 +297,45 @@ def check_kernel(main_boxes):
                     raise AssertionError(f"roi_align kernel disagrees with plain version "
                                          f"({dtype}, C={c}, {name})")
             del full
+    errs.update(check_kernel_portrait(main_boxes))
     fp32 = max(v for (d, _, _), v in errs.items() if d == torch.float32)
     log(f"[kernel] roi_align: all {len(errs)} cases agree; largest fp32 error {fp32:.3e}")
     return errs[(torch.bfloat16, 256, "main")], fp32
+
+
+def check_kernel_portrait(main_boxes):
+    """The kernel against the plain version on the portrait 1344x832 pyramid
+    (C=256, batch 8), where portrait images go (validation and test batches,
+    and training batches of portrait images): the main path's boxes and the
+    map-edge boxes, both transposed into that canvas."""
+    from skghoi_torch.ops.roi_align import multiscale_roi_align
+    from skghoi_torch.ops.roi_align_cuda import roi_align_cuda
+
+    swap = [1, 0, 3, 2]
+    cases = [("main_portrait", main_boxes[..., swap].contiguous()),
+             ("map_edges_portrait",
+              torch.tensor([MAP_EDGE_BOXES] * BATCH, device="cuda")[..., swap].contiguous())]
+    g = torch.Generator(device="cuda").manual_seed(2)
+    maps32 = [torch.randn(BATCH, PORTRAIT[0] // s, PORTRAIT[1] // s, 256, device="cuda",
+                          generator=g) for s in (4, 8, 16, 32)]
+    errs = {}
+    for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, 1e-2)):
+        maps = [m.to(dtype) for m in maps32]
+        for name, boxes in cases:
+            got = roi_align_cuda(maps, boxes)
+            want = multiscale_roi_align(maps, boxes)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            errs[(dtype, 256, name)] = err
+            ok = (got.dtype == dtype and got.shape == want.shape
+                  and torch.allclose(got.float(), want.float(), rtol=tol, atol=tol))
+            log(f"[kernel] roi_align {str(dtype)[6:]} C=256 {PORTRAIT[0]}x{PORTRAIT[1]} {name} "
+                f"boxes {tuple(boxes.shape)}: max|kernel-plain| {err:.3e} (rtol=atol={tol:g}) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"roi_align kernel disagrees with plain version "
+                                     f"({dtype}, {name})")
+    return errs
 
 
 def time_kernel(main_boxes, baseline=None):
@@ -628,6 +687,302 @@ def profile_train_step(step, batch, generator, profile_dir, step_s):
     return dict(device_busy_ms=busy_ms, idle_share=idle)
 
 
+class Tee:
+    """Writes to the real stdout and keeps a copy (the CLI's log lines)."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+    def text(self) -> str:
+        return "".join(self.parts)
+
+
+def run_cli(main, argv):
+    """``main(argv)`` with its standard output shown and returned."""
+    import contextlib
+
+    tee = Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        result = main(argv)
+    return result, tee.text()
+
+
+def check_device_preprocess(root):
+    """``device_resize_canvas`` on the card against the same function on the
+    CPU (atol 1e-6) and against the host ``prepare_image`` on the synthetic
+    images of both partitions.  The device path keeps the JAX package's
+    arithmetic, whose float32 resize ratio moves an output's sample position
+    by up to ``in_size * 2^-24`` pixels per axis (the host computes in
+    float64), so the host bound is the JAX suite's 2e-5 plus
+    ``(h + w) * 2^-24`` (at 480x640: 8.7e-5)."""
+    import numpy as np
+
+    from skghoi_torch.data.device_preprocess import device_resize_canvas
+    from skghoi_torch.data.hicodet import HICODet
+    from skghoi_torch.data.transforms import canvas_for, prepare_image, resize_scale, resized_size
+
+    worst = {}
+    for part in ("train2015", "test2015"):
+        ds = HICODet(os.path.join(root, "hico_20160224_det/images", part),
+                     os.path.join(root, f"instances_{part}.json"))
+        images = [ds[i][0] for i in range(len(ds))]
+        h, w = images[0].shape[:2]
+        canvas = canvas_for(h, w)
+        nh, nw = (min(a, b) for a, b in zip(resized_size(h, w, resize_scale(h, w)), canvas))
+        raw = torch.from_numpy(np.stack(images))
+        sizes = torch.tensor([[h, w]] * len(images), dtype=torch.float32)
+        new = torch.tensor([[nh, nw]] * len(images), dtype=torch.float32)
+        got = device_resize_canvas(raw.cuda(), sizes.cuda(), new.cuda(), canvas).cpu().numpy()
+        cpu = device_resize_canvas(raw, sizes, new, canvas).numpy()
+        host_tol = 2e-5 + (h + w) * 2.0 ** -24
+        errs = [float(np.abs(got - cpu).max()), 0.0]
+        for img, dev in zip(images, got):
+            host, hw, _ = prepare_image(img, canvas)
+            if hw != (nh, nw):
+                raise AssertionError(f"device preprocess: host size {hw}, device {(nh, nw)}")
+            errs[1] = max(errs[1], float(np.abs(dev - host).max()))
+        ok = errs[0] <= 1e-6 and errs[1] <= host_tol
+        log(f"[cli] device_resize_canvas on the card vs the CPU / vs host prepare_image, {part} "
+            f"({len(images)} images {h}x{w} -> {nh}x{nw} in {canvas}): max|d| {errs[0]:.3e} "
+            f"(atol 1e-6) / {errs[1]:.3e} (atol {host_tol:.3e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("device preprocess disagrees with the host pipeline")
+        worst[part] = errs
+    return worst
+
+
+def time_host_pipeline(root, reps: int = 3):
+    """Host cost of each stage of a training batch, one thread, median of
+    ``reps``: JPEG decode and resize into the canvas per image, the collate
+    of one batch, and its copy to the card through pinned memory."""
+    import numpy as np
+
+    from skghoi_torch.data.factory import collate, to_device
+    from skghoi_torch.data.hicodet import HICODet
+    from skghoi_torch.data.transforms import canvas_for, prepare_image
+
+    ds = HICODet(os.path.join(root, "hico_20160224_det/images/train2015"),
+                 os.path.join(root, "instances_train2015.json"))
+    paths = [os.path.join(root, "hico_20160224_det/images/train2015", ds.filename(i))
+             for i in range(BATCH)]
+
+    def timed(fn):
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return sorted(times)[reps // 2] * 1e3, out
+
+    decode_ms, images = timed(lambda: [ds.load_image(p) for p in paths])
+    canvas = canvas_for(*images[0].shape[:2])
+    resize_ms, canvases = timed(lambda: [prepare_image(im, canvas)[0] for im in images])
+    samples = [dict(image=c, image_size=np.asarray([800, 1066], np.float32),
+                    original_size=np.asarray(im.shape[:2], np.float32), canvas=canvas,
+                    det_boxes=np.zeros((20, 4), np.float32), det_labels=np.zeros(20, np.int32),
+                    det_scores=np.zeros(20, np.float32), gt_boxes_h=np.zeros((2, 4), np.float32),
+                    gt_boxes_o=np.zeros((2, 4), np.float32), gt_object=np.zeros(2, np.int32),
+                    gt_labels=np.zeros(2, np.int32)) for c, im in zip(canvases, images)]
+    collate_ms, batch = timed(lambda: collate(samples))
+    copy_ms, _ = timed(lambda: to_device(batch))
+    out = dict(decode_ms_per_image=decode_ms / BATCH, resize_ms_per_image=resize_ms / BATCH,
+               collate_ms_per_batch=collate_ms, copy_ms_per_batch=copy_ms)
+    log(f"[cli] host pipeline, one thread, {images[0].shape[0]}x{images[0].shape[1]} JPEG -> "
+        f"{canvas} canvas, batch {BATCH}: decode {out['decode_ms_per_image']:.2f} ms an image, "
+        f"resize {out['resize_ms_per_image']:.2f} ms an image, collate {collate_ms:.2f} ms a "
+        f"batch, pinned copy to the card {copy_ms:.2f} ms a batch "
+        f"({batch.images.nbytes / 1e6:.1f} MB of images)")
+    return out
+
+
+def phase_cli():
+    """The CLI path at full width on the card: ``train_hicodet`` for two
+    epochs on synthetic HICO-DET (landscape train split, portrait validation
+    split), resume, ``test_hicodet``, the device preprocess, and one
+    ``--device-resize`` epoch."""
+    import re
+    import tempfile
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from skghoi_torch.data.synthetic import make_synthetic_hicodet
+    from skghoi_torch.ops.roi_align_cuda import RoIAlignFunction, roi_align_cuda
+    from skghoi_torch.tools import test_hicodet, train_hicodet
+    from skghoi_torch.train.checkpoint import load_checkpoint
+
+    with tempfile.TemporaryDirectory(prefix="skghoi_cli_") as root:
+        t0 = time.perf_counter()
+        make_synthetic_hicodet(root, "train2015", num_images=CLI_TRAIN_IMAGES, image_size=(480, 640))
+        make_synthetic_hicodet(root, "test2015", num_images=CLI_TEST_IMAGES, image_size=(640, 480))
+        log(f"[cli] synthetic HICO-DET written in {time.perf_counter() - t0:.2f} s: train2015 "
+            f"{CLI_TRAIN_IMAGES} images 480x640, test2015 {CLI_TEST_IMAGES} images 640x480 (JPEG)")
+        data = ["--data-root", root,
+                "--train-detection-dir", os.path.join(root, "detections_train2015"),
+                "--val-detection-dir", os.path.join(root, "detections_test2015"),
+                "--batch-size", str(BATCH), "--print-interval", "1", "--num-workers", "4"]
+        ckpts = os.path.join(root, "checkpoints")
+        train_argv = ["--partitions", "train2015", "test2015", "--num-epochs", "2",
+                      "--cache-dir", ckpts] + data
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        roi_align_cuda.launches = 0
+        RoIAlignFunction.backward_calls = 0
+        t0 = time.perf_counter()
+        engine, text = run_cli(train_hicodet.main, train_argv)
+        train_s = time.perf_counter() - t0
+        launches, adjoints = roi_align_cuda.launches, RoIAlignFunction.backward_calls
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+        steps_per_epoch = CLI_TRAIN_IMAGES // BATCH
+        steps, val_batches = 2 * steps_per_epoch, 2 * math.ceil(CLI_TEST_IMAGES / BATCH)
+        epochs = re.findall(r"^Epoch: .*$", text, re.M)
+        losses = [float(x) for line in re.findall(r"^=> HOI classification loss: .*$", text, re.M)
+                  for x in re.findall(r"-?\d+\.\d+|nan|inf", line)]
+        if len(epochs) != 2 or "Training complete." not in text:
+            raise AssertionError(f"cli: {len(epochs)} Epoch lines")
+        if len(losses) != 3 * steps or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"cli: losses {losses}")
+        for name in ("ckpt_01.pt", "ckpt_02.pt"):
+            if not os.path.exists(os.path.join(ckpts, name)):
+                raise AssertionError(f"cli: {name} was not written")
+        if launches != steps + val_batches or adjoints != steps:
+            raise AssertionError(f"cli: {launches} kernel launches and {adjoints} adjoints for "
+                                 f"{steps} train steps and {val_batches} validation batches")
+        ends = engine.iteration_ends
+        # Loader-inclusive steps after the first of each epoch (the first
+        # step of epoch 2 also waits out validation and the checkpoint).
+        gaps = [b - a for e in range(2) for a, b in
+                zip(ends[e * steps_per_epoch:(e + 1) * steps_per_epoch],
+                    ends[e * steps_per_epoch + 1:(e + 1) * steps_per_epoch])]
+        train_img_s = BATCH * len(gaps) / sum(gaps)
+        log(f"[cli] train_hicodet, float32 (TF32 off), {CANVAS[0]}x{CANVAS[1]} batch {BATCH}, "
+            f"2 epochs of {steps_per_epoch} steps, portrait validation: {train_s:.2f} s in all; "
+            f"steps after the first of each epoch {[round(g * 1e3, 3) for g in gaps]} ms, "
+            f"{train_img_s:.2f} train img/s with the loader; peak memory {peak_gib:.2f} GiB; "
+            f"roi_align launches {launches} ({steps} steps + {val_batches} validation batches), "
+            f"adjoints {adjoints}")
+        for line in epochs:
+            log(f"[cli] {line}")
+
+        # Resume from the first epoch's checkpoint into a fresh engine.
+        resumed, _ = run_cli(train_hicodet.main, ["--partitions", "train2015", "test2015",
+                                                  "--num-epochs", "0", "--cache-dir",
+                                                  os.path.join(root, "resumed"),
+                                                  "--checkpoint-path",
+                                                  os.path.join(ckpts, "ckpt_01.pt")] + data)
+        saved = load_checkpoint(os.path.join(ckpts, "ckpt_01.pt"))
+        opt = resumed.optimizer
+        state = opt.state_dict()
+        params_equal = all(torch.equal(v.cpu(), saved["model_state_dict"][k])
+                           for k, v in resumed.model.state_dict().items())
+        moments_equal = all(torch.equal(s[k].cpu(), saved["optim_state_dict"]["state"][i][k])
+                            for i, s in state["state"].items() for k in ("exp_avg", "exp_avg_sq"))
+        applied = [g["applied_steps"] for g in opt.param_groups]
+        if (resumed.epoch != 1 or resumed.iteration != steps_per_epoch
+                or applied != [steps_per_epoch] * 2 or not params_equal or not moments_equal
+                or [g["lr"] for g in opt.param_groups]
+                != [g["lr"] for g in saved["optim_state_dict"]["param_groups"]]):
+            raise AssertionError(f"cli resume: epoch {resumed.epoch}, applied {applied}, "
+                                 f"params equal {params_equal}, moments equal {moments_equal}")
+        log(f"[cli] resumed from ckpt_01.pt: epoch {resumed.epoch}, iteration "
+            f"{resumed.iteration}, applied steps {applied}, lr "
+            f"{[g['lr'] for g in opt.param_groups]}; parameters and AdamW moments equal the file")
+
+        # One traced epoch of the resumed run: the device's idle share.
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run_cli(lambda _: resumed.run(1), None)
+            torch.cuda.synchronize()
+            epoch_s = time.perf_counter() - t0
+        device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        busy_ms = sum(e.self_device_time_total for e in device) / 1e3
+        idle = max(0.0, 1 - busy_ms / (epoch_s * 1e3))
+        log(f"[cli] one traced epoch ({steps_per_epoch} steps, validation, checkpoint): "
+            f"{epoch_s * 1e3:.1f} ms, device busy {busy_ms:.1f} ms in "
+            f"{sum(e.count for e in device)} device ops: idle {idle:.1%}")
+
+        # What the loop spends beside the step: the step alone on a batch
+        # already on the card, and the checkpoint write.
+        from skghoi_torch.data.factory import to_device
+
+        batch = to_device(next(iter(resumed.train_loader))[0])
+        step_ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            resumed.train_step(batch, generator=resumed.generator)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        resumed.save()
+        save_ms = (time.perf_counter() - t0) * 1e3
+        log(f"[cli] the float32 train step alone on a batch on the card: {step_ms} ms "
+            f"({BATCH * 1e3 / sorted(step_ms)[1]:.2f} img/s at the median); one checkpoint "
+            f"write {save_ms:.1f} ms")
+        del resumed, engine, batch
+
+        # Evaluate the second epoch's checkpoint on the portrait split.
+        roi_align_cuda.launches = 0
+        result, _ = run_cli(test_hicodet.main, [
+            "--data-root", root, "--detection-dir", os.path.join(root, "detections_test2015"),
+            "--partition", "test2015", "--model-path", os.path.join(ckpts, "ckpt_02.pt"),
+            "--batch-size", str(BATCH)])
+        test_launches = roi_align_cuda.launches
+        maps = [result[k] for k in ("full", "rare", "non_rare")]
+        if not all(math.isfinite(m) and 0.0 <= m <= 1.0 for m in maps):
+            raise AssertionError(f"cli test: mAP {maps}")
+        if test_launches != math.ceil(CLI_TEST_IMAGES / BATCH):
+            raise AssertionError(f"cli test: {test_launches} kernel launches")
+        eval_img_s = CLI_TEST_IMAGES / result["seconds"]
+        log(f"[cli] test_hicodet on test2015 ({PORTRAIT[0]}x{PORTRAIT[1]}) with ckpt_02.pt: "
+            f"full/rare/non-rare mAP {maps}, {result['seconds']:.3f} s, {eval_img_s:.2f} eval "
+            f"img/s with the (synchronous) loader; roi_align launches {test_launches}")
+
+        preprocess_err = check_device_preprocess(root)
+        host = time_host_pipeline(root)
+
+        roi_align_cuda.launches = 0
+        RoIAlignFunction.backward_calls = 0
+        dr_engine, text = run_cli(train_hicodet.main, [
+            "--partitions", "train2015", "--num-epochs", "1", "--device-resize",
+            "--cache-dir", os.path.join(root, "device_resize")] + data)
+        ends = dr_engine.iteration_ends
+        dr_gaps = [b - a for a, b in zip(ends, ends[1:])]
+        dr_losses = [float(x) for line in re.findall(r"^=> HOI .*$", text, re.M)
+                     for x in re.findall(r"-?\d+\.\d+|nan|inf", line)]
+        if (len(re.findall(r"^Epoch: ", text, re.M)) != 1 or len(dr_losses) != 3 * steps_per_epoch
+                or not all(math.isfinite(v) for v in dr_losses)
+                or roi_align_cuda.launches != steps_per_epoch
+                or RoIAlignFunction.backward_calls != steps_per_epoch):
+            raise AssertionError(f"cli --device-resize: losses {dr_losses}, launches "
+                                 f"{roi_align_cuda.launches}")
+        log(f"[cli] --device-resize epoch: {steps_per_epoch} steps, losses finite, roi_align "
+            f"launches {roi_align_cuda.launches}, adjoints {RoIAlignFunction.backward_calls}; "
+            f"steps after the first {[round(g * 1e3, 3) for g in dr_gaps]} ms with the loader")
+
+    return dict(dtype="float32", tf32=False, canvas=list(CANVAS), batch=BATCH,
+                train_img_per_s=train_img_s, train_step_ms=[g * 1e3 for g in gaps],
+                eval_img_per_s=eval_img_s, idle_share_traced_epoch=idle,
+                traced_epoch_ms=epoch_s * 1e3, device_busy_ms=busy_ms, peak_gib=peak_gib,
+                step_alone_ms=step_ms, checkpoint_ms=save_ms,
+                train_steps=steps, val_batches=val_batches, launches=launches,
+                adjoints=adjoints, test_launches=test_launches,
+                map=dict(zip(("full", "rare", "non_rare"), maps)),
+                device_preprocess_max_err=preprocess_err, host_pipeline=host,
+                device_resize_step_ms=[g * 1e3 for g in dr_gaps])
+
+
 @torch.no_grad()
 def profile_forward(model, batch, ovm, profile_dir, request_s):
     """One traced forward (device busy time, kernel count, top ops) and the
@@ -714,10 +1069,15 @@ def main() -> int:
     train = phase_train(args.profile)
     kernel["launches_train"] = train["launches"]
     adjoint["calls_train"] = train["adjoints"]
+    cli = phase_cli()
+    kernel["launches_cli"] = cli["launches"]
+    kernel["launches_cli_test"] = cli["test_launches"]
+    adjoint["calls_cli"] = cli["adjoints"]
 
     log(f"[card] {card}")
     print(json.dumps({"library_ops": [adjoint]}))
     print(json.dumps({"train": train}))
+    print(json.dumps({"cli": cli}))
     print(json.dumps({"kernels": [kernel]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

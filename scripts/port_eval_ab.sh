@@ -1,17 +1,21 @@
 #!/bin/bash
-# Serving throughput of two checkouts of the port, in turns on one card:
-#   scripts/port_eval_ab.sh OTHER_CHECKOUT [REQUESTS]
+# Serving and training throughput of two checkouts of the port, in turns on
+# one card:
+#   scripts/port_eval_ab.sh OTHER_CHECKOUT [REQUESTS] [TRAIN_STEPS]
 # runs chip_smoke.py's main path (phase 4: the bf16 SCG at 832x1344, batch 8)
-# for OTHER_CHECKOUT, this checkout, this checkout, OTHER_CHECKOUT, each in a
+# and its training main path (phase 7: the bf16 train step, same shape) for
+# OTHER_CHECKOUT, this checkout, this checkout, OTHER_CHECKOUT, each in a
 # fresh process, and prints each run's per-request times, img/s, profile and
-# stage times.  OTHER_CHECKOUT is e.g. `git archive` of the parent unpacked
-# into a directory that .gitignore lists.
+# stage times, then its TRAIN_STEPS (default 5) per-step times and train
+# img/s.  OTHER_CHECKOUT is e.g. `git archive` of the parent unpacked into a
+# directory that .gitignore lists.
 set -euo pipefail
 other=$(cd "$1" && pwd)
 here=$(cd "$(dirname "$0")/.." && pwd)
 requests=${2:-20}
+train_steps=${3:-5}
 run() {
-  (cd "$1" && REQUESTS="$requests" python3 - <<'PY'
+  (cd "$1" && REQUESTS="$requests" TRAIN_STEPS="$train_steps" python3 - <<'PY'
 import os
 import sys
 
@@ -26,6 +30,8 @@ torch.backends.cuda.matmul.allow_tf32 = False
 roi_align_cuda.build()
 print(f"[ab] {os.getcwd()}", flush=True)
 chip_smoke.phase_main(int(os.environ["REQUESTS"]), os.path.join(os.getcwd(), "_ab_profile"))
+chip_smoke.TRAIN_STEPS = int(os.environ["TRAIN_STEPS"])
+chip_smoke.phase_train(None)
 PY
   )
 }

@@ -7,7 +7,11 @@ file:line (relative to the upstream SKGHOI checkout) that defines it.
 # Dataset class counts (hicodet/hicodet.py:72-74)
 HICO_NUM_OBJECTS = 80
 HICO_NUM_VERBS = 117
+HICO_NUM_INTERACTIONS = 600
 HICO_HUMAN_IDX = 49
+
+VCOCO_NUM_ACTIONS = 24
+VCOCO_HUMAN_IDX = 1
 
 # Detection filtering (heads/adamixer_transH_spatial_r50_head.py:66-71,119-142)
 BOX_SCORE_THRESH = 0.2
@@ -16,10 +20,20 @@ MAX_HUMAN = 15
 MAX_OBJECT = 15
 MAX_BOXES = MAX_HUMAN + MAX_OBJECT          # 30 slots, humans packed first
 
-# Image transform (models/adamixer_transH_spatial_r50_models.py:134,193-198)
+# Padded capacity of the raw detections entering the filter (a cached
+# detection JSON holds <=100 boxes) and of the ground-truth pairs an image.
+MAX_RAW_DETECTIONS = 128
+MAX_GT_PAIRS = 32
+
+# Image transform (models/adamixer_transH_spatial_r50_models.py:134,193-198):
+# short side to 800, long side at most 1333, pasted into a fixed canvas by
+# orientation (multiples of 32 that cover that envelope).
+IMAGE_MIN_SIZE = 800
+IMAGE_MAX_SIZE = 1333
 IMAGE_MEAN = (0.485, 0.456, 0.406)
 IMAGE_STD = (0.229, 0.224, 0.225)
 CANVAS_LANDSCAPE = (832, 1344)
+CANVAS_PORTRAIT = (1344, 832)
 
 # Model dimensions (heads/...head.py:635-701; models/...models.py:115-177)
 FPN_CHANNELS = 256

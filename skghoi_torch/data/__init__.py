@@ -1,1 +1,2 @@
-"""Fixed-shape batch containers."""
+"""Datasets (HICO-DET / V-COCO), transforms, the padded batch pipeline and
+its fixed-shape containers."""

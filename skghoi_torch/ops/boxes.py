@@ -79,3 +79,24 @@ def batched_nms_keep(boxes: Tensor, scores: Tensor, labels: Tensor, valid: Tenso
     max_coord = coords.flatten(-2).amax(dim=-1) + 1.0  # [...]
     offsets = labels.to(boxes.dtype)[..., None] * max_coord[..., None, None]
     return nms_keep(boxes + offsets, scores, valid, iou_threshold)
+
+
+def resize_boxes(boxes: Tensor, original_size, new_size) -> Tensor:
+    """Scale ``[..., 4]`` boxes from ``original_size`` to ``new_size``, each
+    ``(h, w)`` as numbers or tensors that broadcast against ``boxes[..., 0]``
+    (torchvision ``resize_boxes``; reference ``models/...models.py:62-67``)."""
+    oh, ow = original_size
+    nh, nw = new_size
+
+    def t(x):
+        return torch.as_tensor(x, dtype=boxes.dtype, device=boxes.device)
+
+    ratio_w, ratio_h = t(nw) / t(ow), t(nh) / t(oh)
+    return boxes * torch.stack(torch.broadcast_tensors(ratio_w, ratio_h, ratio_w, ratio_h), -1)
+
+
+def hflip_boxes(boxes: Tensor, width) -> Tensor:
+    """Flip ``[..., 4]`` boxes horizontally in an image of ``width``
+    (``pocket.ops.horizontal_flip_boxes``; reference ``utils.py:115-118``)."""
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    return torch.stack([width - x2, y1, width - x1, y2], -1)

@@ -1,1 +1,2 @@
-"""The train step: forward, losses, backward and the guarded AdamW update."""
+"""The train and eval steps: forward, losses, backward and the guarded AdamW
+update; the inference forward."""

@@ -59,3 +59,15 @@ def build_train_step(model, optimizer: torch.optim.Optimizer, object_verb_mask: 
 
     step.model, step.optimizer = model, optimizer
     return step
+
+
+def build_eval_step(model, object_verb_mask: torch.Tensor) -> Callable:
+    """Returns ``eval_step(batch) -> InteractionOutputs``: the inference
+    forward, without gradients and with the targets dropped (JAX
+    ``build_eval_step``)."""
+
+    @torch.no_grad()
+    def eval_step(batch):
+        return model(batch._replace(targets=None), object_verb_mask, training=False)
+
+    return eval_step

@@ -1,1 +1,2 @@
-"""The optimizer: two-group AdamW with the milestone schedule."""
+"""Training: two-group AdamW with the milestone schedule, checkpoints, and the
+learning engine."""

@@ -6,20 +6,24 @@ the caller names the CPU: without a card they raise instead of falling back.
 """
 
 import ast
+import os
 from pathlib import Path
 
 import pytest
 import torch
 
+from skghoi_torch.data.factory import to_device
 from skghoi_torch.device import resolve_device
 from skghoi_torch.entry import build_model, entry, make_batch, verb_mask
 from skghoi_torch.models.backbone import DetectorBackbone
 from skghoi_torch.models.scg import SpatiallyConditionedGraph
 from skghoi_torch.ops.roi_align_cuda import roi_align_cuda
+from skghoi_torch.tools import cache_results, test_hicodet, train_hicodet
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "skghoi_tpu", "__graft_entry__", "bench")
 SOURCES = sorted((ROOT / "skghoi_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+_NOWHERE = str(ROOT / "checkout_check" / "no-such-dir")  # the CLIs must raise before writing
 
 
 def _imported_roots(path):
@@ -42,7 +46,8 @@ def test_no_jax_imports(path):
 
 def test_sources_scanned():
     names = {p.name for p in SOURCES}
-    assert {"roi_align_cuda.py", "scg.py", "weights.py", "chip_smoke.py"} <= names
+    assert {"roi_align_cuda.py", "scg.py", "weights.py", "chip_smoke.py", "factory.py",
+            "engine.py", "checkpoint.py", "hoi_eval.py", "train_hicodet.py"} <= names
 
 
 @pytest.mark.parametrize("build", [
@@ -53,12 +58,19 @@ def test_sources_scanned():
     lambda: build_model(),
     lambda: make_batch(1, (64, 96)),
     lambda: verb_mask(),
-], ids=["resolve", "resolve-cuda", "scg", "backbone", "build_model", "make_batch", "verb_mask"])
+    lambda: to_device(make_batch(1, (64, 96), device="cpu")),
+    lambda: train_hicodet.main(["--synthetic", "--synthetic-root", _NOWHERE]),
+    lambda: test_hicodet.main(["--synthetic", "--synthetic-root", _NOWHERE]),
+    lambda: cache_results.main(["--dataset", "hicodet", "--synthetic", "--synthetic-root",
+                                _NOWHERE]),
+], ids=["resolve", "resolve-cuda", "scg", "backbone", "build_model", "make_batch", "verb_mask",
+        "to_device", "train_hicodet", "test_hicodet", "cache_results"])
 def test_default_device_is_cuda(build):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the default is usable")
     with pytest.raises(RuntimeError, match="CUDA"):
         build()
+    assert not os.path.exists(_NOWHERE)
 
 
 def test_kernel_wrapper_refuses_cpu():
