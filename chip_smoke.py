@@ -75,9 +75,40 @@ Phases, each reporting on its own lines; any failure exits non-zero:
    ``--device-resize`` epoch.  Prints loader-inclusive train img/s, eval
    img/s, idle share, peak memory and the launch counts.
 
-It prints the adjoint's, the train step's and the CLI path's JSON lines, the
-kernels' JSON line, the card, then ``{"ok": true, "device": ...}`` last.  Without a CUDA
-device it exits with code 2 and prints no result.
+9. The KGE toolkit, on seeded synthetic KGs written by
+   :func:`write_synthetic_kg` at FB15K237's published sizes (14 541
+   entities, 237 relations, 272 115 / 17 535 / 20 466 triples) and WN18RR's
+   (40 943, 11, 86 835 / 3 034 / 3 134), Zipf-like degrees, with type
+   constraints: (a) for ``transe_fb15k237``, ``transh_fb15k237`` and
+   ``transe_wn18rr`` (one-side, sigmoid-adversarial, Adam, dim 1024), three
+   trainer steps on the card and on the CPU from the same seeded state on
+   the same batches, in float64 (parameters within 1e-5 of each tensor's
+   max) and in float32 (the same but in at most 2 rows a step of each table,
+   where an L1 component rounds to opposite signs), then the raw and
+   filtered ranks of the first 512 test triples, under the same tables,
+   equal on both (a rank may differ only at a float tie within 2^-20 of the
+   row's scale, by at most the tied entities; such ranks are counted);
+   (b) ``tools.train_kge.main`` at ``--example transe_fb15k237`` and
+   ``transh_fb15k237`` for 5 epochs (the logged loss must fall), filtered
+   link prediction over all test triples, the ``--checkpoint`` reloaded
+   with ``--epochs 0`` reprinting the same metrics, and one
+   ``--type-constrain`` evaluation; (c) ``--example
+   transe_wn18rr`` for 2 epochs on the WN18RR-size KG.  For each preset:
+   epoch ms (median of 3, after a warm-up epoch), train triples/s with
+   negatives, one traced epoch's device busy time and idle share, and the
+   step's byte bound.
+10. ``cache_results --dataset vcoco`` (float32, 832x1344, batch 8) on
+    synthetic V-COCO (8 images 480x640), then ``vcoco_evaluation`` on the
+    pickle, its mean role AP equal to a run of the same pickle in a process
+    with no card; ``pretrain_transh_hoi --synthetic`` on the card, then
+    ``train_hicodet --synthetic --transh-init`` (the SCG's TransH tables
+    equal the checkpoint's after loading; one epoch, counting the kernel's
+    launches as ``launches_cli_transh``).
+
+It prints the adjoint's, the train step's, the CLI path's, the KGE and the
+V-COCO/TransH JSON lines, the kernels' JSON line, the card, then
+``{"ok": true, "device": ...}`` last.  Without a CUDA device it exits with
+code 2 and prints no result.
 """
 
 from __future__ import annotations
@@ -666,9 +697,19 @@ def phase_train(profile_dir):
     return result
 
 
+def device_events(events):
+    """The device rows of a profile's ``key_averages()``: kernels, copies and
+    memsets.  A ``record_function`` range (``Optimizer.step#Adam.step``) also
+    gets a device row spanning the kernels it wraps; counting it would count
+    those kernels twice."""
+    from torch.autograd import DeviceType
+
+    return [e for e in events
+            if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+
+
 def profile_train_step(step, batch, generator, profile_dir, step_s):
     """One traced train step: device busy time and idle share, top operations."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     os.makedirs(profile_dir, exist_ok=True)
@@ -677,7 +718,7 @@ def profile_train_step(step, batch, generator, profile_dir, step_s):
         torch.cuda.synchronize()
     prof.export_chrome_trace(os.path.join(profile_dir, "scg_bf16_train_step.json"))
     events = prof.key_averages()
-    device = [e for e in events if e.device_type == DeviceType.CUDA]
+    device = device_events(events)
     busy_ms = sum(e.self_device_time_total for e in device) / 1e3
     log(events.table(sort_by="self_device_time_total", row_limit=20))
     idle = max(0.0, 1 - busy_ms / (step_s * 1e3))
@@ -811,7 +852,6 @@ def phase_cli():
     import re
     import tempfile
 
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from skghoi_torch.data.synthetic import make_synthetic_hicodet
@@ -905,7 +945,7 @@ def phase_cli():
             run_cli(lambda _: resumed.run(1), None)
             torch.cuda.synchronize()
             epoch_s = time.perf_counter() - t0
-        device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        device = device_events(prof.key_averages())
         busy_ms = sum(e.self_device_time_total for e in device) / 1e3
         idle = max(0.0, 1 - busy_ms / (epoch_s * 1e3))
         log(f"[cli] one traced epoch ({steps_per_epoch} steps, validation, checkpoint): "
@@ -983,11 +1023,388 @@ def phase_cli():
                 device_resize_step_ms=[g * 1e3 for g in dr_gaps])
 
 
+# Published sizes of the KGE benchmarks (OpenKE benchmarks/*/{entity,relation,train,valid,test}2id.txt).
+FB15K237 = dict(name="FB15K237", ent=14541, rel=237, train=272115, valid=17535, test=20466)
+WN18RR = dict(name="WN18RR", ent=40943, rel=11, train=86835, valid=3034, test=3134)
+KGE_EPOCHS = 5        # phase 9b: train_kge epochs, enough to show the loss falling
+KGE_WN_EPOCHS = 2     # phase 9c
+KGE_PARITY_STEPS = 3  # phase 9a: trainer steps held card vs CPU
+KGE_PARITY_TEST = 512  # phase 9a: test triples ranked card vs CPU
+KGE_TIMED_EPOCHS = 3  # per preset, each timed alone after one warm-up epoch
+TIE_TOL = 2.0 ** -20  # a rank may differ only where scores tie within this share of the row's max
+
+
+def write_synthetic_kg(root, sizes, seed=0):
+    """A seeded KG at a benchmark's published sizes, in OpenKE's ``*2id.txt``
+    format with ``type_constrain.txt``: heads, tails and relations drawn from
+    Zipf-like popularity (weight ``1 / rank^0.8`` over a shuffled order),
+    unique triples without self-loops, valid and test disjoint from train."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n_ent, n_rel = sizes["ent"], sizes["rel"]
+    total = sizes["train"] + sizes["valid"] + sizes["test"]
+
+    def popularity(n):
+        w = 1.0 / np.arange(1, n + 1) ** 0.8
+        return rng.permutation(n), w / w.sum()
+
+    (ent_order, ent_p), (rel_order, rel_p) = popularity(n_ent), popularity(n_rel)
+    keys = np.zeros(0, np.int64)
+    while len(keys) < total:
+        n = int((total - len(keys)) * 1.3) + 1000
+        h = ent_order[rng.choice(n_ent, n, p=ent_p)]
+        t = ent_order[rng.choice(n_ent, n, p=ent_p)]
+        r = rel_order[rng.choice(n_rel, n, p=rel_p)]
+        new = ((h * n_rel + r) * n_ent + t)[h != t]
+        merged = np.concatenate([keys, new])
+        _, first = np.unique(merged, return_index=True)
+        keys = merged[np.sort(first)]
+    keys = rng.permutation(keys[:total])
+    triples = np.stack([keys // (n_rel * n_ent), keys % n_ent, (keys // n_ent) % n_rel], 1)
+    os.makedirs(root, exist_ok=True)
+    for name, n in (("entity2id.txt", n_ent), ("relation2id.txt", n_rel)):
+        with open(os.path.join(root, name), "w") as f:
+            f.write(f"{n}\n" + "".join(f"/m/e{i}\t{i}\n" for i in range(n)))
+    bounds = np.cumsum([0, sizes["train"], sizes["valid"], sizes["test"]])
+    for name, lo, hi in zip(("train2id.txt", "valid2id.txt", "test2id.txt"), bounds, bounds[1:]):
+        with open(os.path.join(root, name), "w") as f:
+            f.write(f"{hi - lo}\n")
+            np.savetxt(f, triples[lo:hi], fmt="%d")
+    with open(os.path.join(root, "type_constrain.txt"), "w") as f:
+        f.write(f"{n_rel}\n")
+        for r in range(n_rel):
+            for col in (0, 1):
+                ents = np.unique(triples[triples[:, 2] == r, col])
+                f.write(f"{r} {len(ents)} " + " ".join(map(str, ents)) + "\n")
+    return root
+
+
+def kge_step_bytes(args, data):
+    """Bytes one training step must move: every gathered embedding row read
+    once and its gradient row written once by the backward (``(1 + neg) B``
+    rows per entity slot and per relation table), plus the dense update of
+    every table (SGD reads parameter and gradient and writes the parameter;
+    Adam also reads and writes both moments)."""
+    b, k = max(1, int(data.train_total / args.nbatches)), args.neg_ent
+    dim, elem = args.dim, 4
+    if args.sampling_mode == "oneside":
+        ent_rows, rel_rows = b * (2 + k), b
+    else:
+        ent_rows, rel_rows = 2 * b * (1 + k), b * (1 + k)
+    rel_tables = 2 if args.model == "transh" else 1  # TransH: rel_embeddings + norm_vector
+    gathered = (ent_rows + rel_tables * rel_rows) * dim * elem
+    params = (data.ent_tot + rel_tables * data.rel_tot) * dim * elem
+    passes = 7 if args.opt == "adam" else 3
+    return 2 * gathered + passes * params
+
+
+def rank_mismatches(got, want, scores_of):
+    """Ranks of two runs may differ only where the ground truth's score ties
+    another entity's within ``TIE_TOL`` of the row's largest score, and by no
+    more than the number of such entities (``scores_of(side, i)`` gives the
+    row); returns the count of such ties.  How many there are depends on how
+    densely the entities' scores crowd the ground truth's (near the initial
+    tables at dim 1 024 and 40 943 entities, about one rank in eight), so the
+    count is reported, not bounded."""
+    import numpy as np
+
+    ties = 0
+    for key in got:
+        for i in np.flatnonzero(got[key] != want[key]):
+            side = key.split("_")[0]
+            row, gt = scores_of(side, i)
+            near = np.abs(row - row[gt]) <= TIE_TOL * np.abs(row).max()
+            near[gt] = False
+            if not near.any() or abs(int(got[key][i]) - int(want[key][i])) > near.sum():
+                raise AssertionError(f"ranks differ without a tie: {key}[{i}] {got[key][i]} "
+                                     f"vs {want[key][i]}")
+            ties += 1
+    return ties
+
+
+def kge_parity(root, example, steps=KGE_PARITY_STEPS):
+    """``steps`` trainer steps of the preset on the card and on the CPU from
+    the same seeded state on the same batches (drawn by the sampler on the
+    CPU); then the ranks of the first ``KGE_PARITY_TEST`` test triples under
+    the CPU's trained tables on both, equal but for counted float ties.
+
+    The steps run in float32 and in float64.  In float64 every parameter is
+    within 1e-5 of its tensor's max.  In float32 so is every parameter
+    outside the few rows where an L1 distance component sits at rounding
+    level: ``|x|``'s gradient is ``sign(x)``, and where the two devices round
+    ``x`` to opposite signs the row takes a step of another sign (the same
+    happens between float32 and float64 on one device).  At most
+    ``2 * steps`` rows a table may differ so."""
+    import dataclasses
+
+    from skghoi_torch.kge import KGData, Tester
+    from skghoi_torch.kge.sampling import DeviceKG, sample_batch, sample_batch_oneside
+    from skghoi_torch.tools import train_kge
+
+    args = train_kge.parse_args(["--data", root, "--example", example])
+    data = KGData.load(root)
+    data = dataclasses.replace(data, test=data.test[:KGE_PARITY_TEST])
+    kg_cpu = DeviceKG.from_kgdata(data, "cpu")
+    sampler = sample_batch_oneside if args.sampling_mode == "oneside" else sample_batch
+    g = torch.Generator().manual_seed(11)
+    batches = [sampler(g, kg_cpu, max(1, int(data.train_total / args.nbatches)), args.neg_ent,
+                       bern=args.bern) for _ in range(steps)]
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        models, losses = {}, {}
+        for dev in ("cpu", "cuda"):
+            model = train_kge.build_model(args, data, torch.device(dev)).to(dtype)
+            feed = iter(batches)
+            trainer = train_kge.build_trainer(args, model, DeviceKG.from_kgdata(data, dev), steps,
+                                              batches=lambda: next(feed))
+            losses[dev] = [trainer.step().item() for _ in range(steps)]
+            models[dev] = model
+        want = models["cpu"].state_dict()
+        worst, rows = (0.0, ""), {}
+        for n, p in models["cuda"].state_dict().items():
+            rel = (p.cpu() - want[n]).abs() / want[n].abs().max()
+            worst = max(worst, (rel.max().item(), n))
+            rows[n] = len(torch.unique(torch.nonzero(rel > 1e-5)[:, 0]))
+        loss_err = max(abs(a / b - 1) for a, b in zip(losses["cuda"], losses["cpu"]))
+        name = str(dtype)[6:]
+        out[name] = dict(loss_rel_err=loss_err, param_rel_err=worst[0], rows_beyond_1e5=rows)
+        log(f"[kge parity] {example} ({args.model} dim {args.dim}, {args.sampling_mode}, "
+            f"{args.loss}, {args.opt} {args.alpha}), {name}: {steps} steps card vs CPU on the same "
+            f"batches, losses {[round(x, 6) for x in losses['cuda']]} (largest relative difference "
+            f"{loss_err:.2e}); parameters largest max|d| / max|p| {worst[0]:.2e} ({worst[1]}), rows "
+            f"with an element beyond 1e-5 of the max {rows}")
+        limit = 0 if dtype == torch.float64 else 2 * steps
+        if loss_err > 1e-5 or any(v > limit for v in rows.values()):
+            raise AssertionError(f"kge parity: {example} ({name}) differs between the card and "
+                                 f"the CPU")
+        if dtype == torch.float32:
+            tables = models["cpu"].state_dict()
+        del models
+
+    # Rank with the same tables on both, so that only the ranking's own
+    # arithmetic differs.
+    ranked = {}
+    for dev in ("cpu", "cuda"):
+        model = train_kge.build_model(args, data, torch.device(dev))
+        model.load_state_dict(tables)
+        t0 = time.perf_counter()
+        got = Tester(model, data).ranks()
+        ranked[dev] = ({k: v for k, v in got.items() if not k.endswith("cons")},
+                       time.perf_counter() - t0, model)
+    cpu_model = ranked["cpu"][2]
+
+    def scores_of(side, i):
+        h, t, r = (torch.tensor([x]) for x in data.test[i])
+        with torch.no_grad():
+            fn = cpu_model.rank_all_heads if side == "head" else cpu_model.rank_all_tails
+            row = fn(t if side == "head" else h, r)[0]
+        return row.numpy(), int(data.test[i][0 if side == "head" else 1])
+
+    ties = rank_mismatches(ranked["cuda"][0], ranked["cpu"][0], scores_of)
+    n_ranks = len(data.test) * len(ranked["cpu"][0])
+    log(f"[kge parity] {example}: with the float32 CPU tables on both, the raw and filtered ranks "
+        f"of {len(data.test)} test triples (both sides) are equal but {ties} of {n_ranks}, each "
+        f"at a float tie; ranking {ranked['cuda'][1]:.3f} s on the card, {ranked['cpu'][1]:.3f} s "
+        f"on the CPU")
+    return dict(out, rank_ties=ties, ranks=n_ranks, rank_card_s=ranked["cuda"][1],
+                rank_cpu_s=ranked["cpu"][1])
+
+
+def time_kge_epochs(root, example):
+    """The preset's trainer as ``train_kge`` builds it: one warm-up epoch,
+    ``KGE_TIMED_EPOCHS`` epochs timed alone, one traced epoch (device busy
+    and idle share)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from skghoi_torch.kge import KGData
+    from skghoi_torch.kge.sampling import DeviceKG
+    from skghoi_torch.tools import train_kge
+
+    args = train_kge.parse_args(["--data", root, "--example", example])
+    data = KGData.load(root)
+    model = train_kge.build_model(args, data, torch.device("cuda"))
+    trainer = train_kge.build_trainer(args, model, DeviceKG.from_kgdata(data, "cuda"), 1)
+    trainer.run_epoch().item()
+    times = []
+    for _ in range(KGE_TIMED_EPOCHS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.run_epoch().item()
+        times.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.run_epoch().item()
+        traced_s = time.perf_counter() - t0
+    device = device_events(prof.key_averages())
+    busy_ms = sum(e.self_device_time_total for e in device) / 1e3
+    n_ops = sum(e.count for e in device)
+    epoch_s = sorted(times)[len(times) // 2]
+    triples = trainer.batch_size * (1 + args.neg_ent) * args.nbatches
+    n_bytes = kge_step_bytes(args, data)
+    bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    if not busy_ms:
+        raise AssertionError("kge: the profiler saw no device time in the traced epoch")
+    out = dict(example=example, model=args.model, dim=args.dim, batch=trainer.batch_size,
+               neg=args.neg_ent, nbatches=args.nbatches, epoch_ms=[t * 1e3 for t in times],
+               epoch_ms_median=epoch_s * 1e3, step_ms=epoch_s * 1e3 / args.nbatches,
+               device_ms_per_step=busy_ms / args.nbatches, device_ops_per_step=n_ops / args.nbatches,
+               idle_share=max(0.0, 1 - busy_ms / (traced_s * 1e3)),
+               train_triples_per_s=triples / epoch_s, step_bytes=n_bytes, step_bound_ms=bound_ms)
+    log(f"[kge] {example} epoch ({args.nbatches} steps of {trainer.batch_size} x (1 + "
+        f"{args.neg_ent}) triples): ms {[round(t * 1e3, 3) for t in times]}, median "
+        f"{epoch_s * 1e3:.3f} ({out['step_ms']:.4f} ms a step), {out['train_triples_per_s']:.0f} "
+        f"train triples/s with negatives; traced epoch {traced_s * 1e3:.3f} ms, device busy "
+        f"{busy_ms:.3f} ms in {n_ops} device ops ({out['device_ms_per_step']:.4f} ms a step): idle "
+        f"{out['idle_share']:.1%}; step byte bound {bound_ms:.4f} ms ({n_bytes / 1e6:.1f} MB): "
+        f"device time at {bound_ms / out['device_ms_per_step']:.1%} of it")
+    log(prof.key_averages().table(sort_by="self_device_time_total", row_limit=8))
+    del trainer, model
+    return out
+
+
+def run_train_kge(argv):
+    """``train_kge.main(argv)``; returns (result, its JSON row, the Epoch losses)."""
+    import re
+    import tempfile
+
+    from skghoi_torch.tools import train_kge
+
+    with tempfile.TemporaryDirectory(prefix="skghoi_kge_json_") as tmp:
+        path = os.path.join(tmp, "row.jsonl")
+        res, text = run_cli(train_kge.main, argv + ["--json-out", path])
+        with open(path) as f:
+            row = json.loads(f.read())
+    epochs = [float(x) for x in re.findall(r"^Epoch \d+ \| loss: (\S+) \|", text, re.M)]
+    return res, row, epochs
+
+
+def phase_kge():
+    """Phase 9: the KGE toolkit on the card, on seeded synthetic KGs at
+    FB15K237's and WN18RR's published sizes."""
+    import tempfile
+
+    results = dict(parity={}, train_kge={}, epochs={})
+    with tempfile.TemporaryDirectory(prefix="skghoi_kge_") as tmp:
+        t0 = time.perf_counter()
+        fb = write_synthetic_kg(os.path.join(tmp, "fb15k237"), FB15K237, seed=0)
+        wn = write_synthetic_kg(os.path.join(tmp, "wn18rr"), WN18RR, seed=1)
+        log(f"[kge] synthetic KGs written in {time.perf_counter() - t0:.2f} s: {FB15K237} and {WN18RR}")
+
+        for root, example in ((fb, "transe_fb15k237"), (fb, "transh_fb15k237"), (wn, "transe_wn18rr")):
+            results["parity"][example] = kge_parity(root, example)
+
+        for root, example, epochs in ((fb, "transe_fb15k237", KGE_EPOCHS),
+                                      (fb, "transh_fb15k237", KGE_EPOCHS),
+                                      (wn, "transe_wn18rr", KGE_WN_EPOCHS)):
+            ckpt = os.path.join(tmp, f"{example}.pt")
+            base = ["--data", root, "--example", example]
+            res, row, losses = run_train_kge(base + ["--epochs", str(epochs), "--checkpoint", ckpt])
+            if len(losses) < 2 or not all(map(math.isfinite, losses)) or losses[-1] >= losses[0]:
+                raise AssertionError(f"train_kge {example}: epoch losses {losses} do not fall")
+            again, row2, _ = run_train_kge(base + ["--epochs", "0", "--load-checkpoint", ckpt])
+            if tuple(again) != tuple(res) or again.raw != res.raw:
+                raise AssertionError(f"train_kge {example}: the checkpoint reprints {tuple(again)}, "
+                                     f"not {tuple(res)}")
+            entry = dict(epochs=epochs, loss_first=losses[0], loss_last=losses[-1],
+                         train_s=row["train_seconds"], mrr=res.mrr, mr=res.mr, hit10=res.hit10,
+                         eval_s=row2["eval_seconds"], device=row["device_name"])
+            n_test = FB15K237["test"] if root == fb else WN18RR["test"]
+            entry["test_triples_per_s"] = n_test / row2["eval_seconds"]
+            if example == "transe_fb15k237":
+                cons, row3, _ = run_train_kge(base + ["--epochs", "0", "--load-checkpoint", ckpt,
+                                                      "--type-constrain"])
+                entry.update(type_constrained=dict(mrr=cons.mrr, mr=cons.mr, hit10=cons.hit10,
+                                                   eval_s=row3["eval_seconds"]))
+                if not cons.mr <= res.mr:
+                    raise AssertionError("type constraints gave a worse filtered MR")
+            log(f"[kge] train_kge --example {example}: epoch losses {losses}, {row['train_seconds']:.3f} s "
+                f"training; filtered link prediction over {n_test} test triples: MRR {res.mrr:.6f} MR "
+                f"{res.mr:.2f} hits@10 {res.hit10:.6f}, {row2['eval_seconds']:.3f} s "
+                f"({entry['test_triples_per_s']:.1f} test triples/s); reloaded checkpoint reprints "
+                f"the same metrics" + (f"; type-constrained MRR {entry['type_constrained']['mrr']:.6f}"
+                                       f" in {entry['type_constrained']['eval_s']:.3f} s"
+                                       if "type_constrained" in entry else ""))
+            results["train_kge"][example] = entry
+            results["epochs"][example] = time_kge_epochs(root, example)
+    return results
+
+
+def phase_vcoco_transh():
+    """Phase 10: V-COCO caching and evaluation, and the TransH pretrain path
+    into ``train_hicodet --transh-init``."""
+    import subprocess as sp
+    import tempfile
+
+    from skghoi_torch.data.synthetic import make_synthetic_vcoco
+    from skghoi_torch.ops.roi_align_cuda import roi_align_cuda
+    from skghoi_torch.tools import cache_results, pretrain_transh_hoi, train_hicodet, vcoco_evaluation
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="skghoi_vcoco_") as root:
+        make_synthetic_vcoco(root, "test", num_images=CLI_TEST_IMAGES, image_size=(480, 640))
+        roi_align_cuda.launches = 0
+        t0 = time.perf_counter()
+        run_cli(cache_results.main, [
+            "--dataset", "vcoco", "--data-root", root, "--partition", "test",
+            "--detection-dir", os.path.join(root, "detections_test"),
+            "--cache-dir", os.path.join(root, "cache"), "--batch-size", str(BATCH)])
+        cache_s = time.perf_counter() - t0
+        launches = roi_align_cuda.launches
+        pkl = os.path.join(root, "cache", "vcoco_results.pkl")
+        argv = ["--data-root", root, "--det-file", pkl]
+        res, _ = run_cli(vcoco_evaluation.main, argv)
+        code = ("import json, sys; from skghoi_torch.tools import vcoco_evaluation as v; "
+                "r = v.main(sys.argv[1:]); print(json.dumps(r['mean']))")
+        cpu = sp.run([sys.executable, "-c", code] + argv, capture_output=True, text=True, check=True,
+                     timeout=300, cwd=os.path.dirname(os.path.abspath(__file__)),
+                     env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+        cpu_mean = json.loads(cpu.stdout.strip().splitlines()[-1])
+        if cpu_mean != res["mean"] or launches != math.ceil(CLI_TEST_IMAGES / BATCH):
+            raise AssertionError(f"vcoco: mean {res['mean']} vs CPU {cpu_mean}; {launches} launches")
+        if not all(0.0 <= v <= 1.0 for v in res["mean"].values()):
+            raise AssertionError(f"vcoco: mean role AP {res['mean']}")
+        log(f"[vcoco] cache_results --dataset vcoco ({CLI_TEST_IMAGES} images 480x640, float32, "
+            f"{CANVAS[0]}x{CANVAS[1]}, batch {BATCH}): {cache_s:.3f} s, roi_align launches {launches}; "
+            f"vcoco_evaluation over {len(res['per_action'])} actions: mean {res['mean']}, equal to "
+            f"the CPU run of the same pickle")
+        out["vcoco"] = dict(mean=res["mean"], actions=len(res["per_action"]), cache_s=cache_s,
+                            launches=launches)
+
+    with tempfile.TemporaryDirectory(prefix="skghoi_transh_") as tmp:
+        pt = os.path.join(tmp, "transh_hoi.pt")
+        t0 = time.perf_counter()
+        kge, _ = run_cli(pretrain_transh_hoi.main, ["--synthetic", "--output", pt])
+        pretrain_s = time.perf_counter() - t0
+        saved = torch.load(pt, map_location="cpu", weights_only=True)
+        if next(kge.parameters()).device.type != "cuda":
+            raise AssertionError("pretrain_transh_hoi did not train on the card")
+        common = ["--synthetic", "--synthetic-root", os.path.join(tmp, "synth"), "--transh-init", pt]
+        loaded, _ = run_cli(train_hicodet.main, common + ["--num-epochs", "0", "--cache-dir",
+                                                          os.path.join(tmp, "c0")])
+        transh = loaded.model.interaction_head.box_pair_head.transh
+        equal = all(torch.equal(getattr(transh, t).weight.cpu(), saved[f"{t}.weight"])
+                    for t in pretrain_transh_hoi.TRANSH_TABLES)
+        del loaded
+        roi_align_cuda.launches = 0
+        engine, text = run_cli(train_hicodet.main, common + ["--cache-dir", os.path.join(tmp, "c1")])
+        launches = roi_align_cuda.launches
+        if not equal or "Training complete." not in text or launches != engine.iteration or not launches:
+            raise AssertionError(f"transh-init: tables equal {equal}, {launches} launches in "
+                                 f"{engine.iteration} steps")
+        log(f"[transh] pretrain_transh_hoi --synthetic on the card: {pretrain_s:.3f} s, tables "
+            f"{ {k: tuple(v.shape) for k, v in saved.items()} }; train_hicodet --synthetic "
+            f"--transh-init: the SCG's TransH tables equal the checkpoint's after loading; one "
+            f"epoch of {engine.iteration} steps, roi_align launches {launches}")
+        out["transh_init"] = dict(pretrain_s=pretrain_s, tables_equal=equal, steps=engine.iteration,
+                                  launches=launches)
+    return out
+
+
 @torch.no_grad()
 def profile_forward(model, batch, ovm, profile_dir, request_s):
     """One traced forward (device busy time, kernel count, top ops) and the
     eager time of each stage of the path, by CUDA events."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from skghoi_torch import constants as C
@@ -1000,7 +1417,7 @@ def profile_forward(model, batch, ovm, profile_dir, request_s):
         torch.cuda.synchronize()
     prof.export_chrome_trace(os.path.join(profile_dir, "scg_bf16_forward.json"))
     events = prof.key_averages()
-    device = [e for e in events if e.device_type == DeviceType.CUDA]  # kernels, copies
+    device = device_events(events)
     busy_ms = sum(e.self_device_time_total for e in device) / 1e3
     n_kernels = sum(e.count for e in device)
     roi = [e for e in events if "roi_align_staged_kernel" in e.key]
@@ -1073,11 +1490,17 @@ def main() -> int:
     kernel["launches_cli"] = cli["launches"]
     kernel["launches_cli_test"] = cli["test_launches"]
     adjoint["calls_cli"] = cli["adjoints"]
+    kge = phase_kge()
+    hoi = phase_vcoco_transh()
+    kernel["launches_cli_vcoco"] = hoi["vcoco"]["launches"]
+    kernel["launches_cli_transh"] = hoi["transh_init"]["launches"]
 
     log(f"[card] {card}")
     print(json.dumps({"library_ops": [adjoint]}))
     print(json.dumps({"train": train}))
     print(json.dumps({"cli": cli}))
+    print(json.dumps({"kge": kge}))
+    print(json.dumps({"vcoco_transh": hoi}))
     print(json.dumps({"kernels": [kernel]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -12,8 +12,9 @@ The model trains in float32 with ``frozen_stages=1`` (the model's defaults),
 from seeded random weights (``weights.init_parameters``).
 
 ``--synthetic`` generates a tiny on-disk dataset and runs the whole pipeline
-at 64x96 for one epoch.  ``--transh-init`` (TransH embeddings pretrained by
-the KGE toolkit) is not available in the port yet.
+at 64x96 for one epoch.  ``--transh-init`` loads the TransH tables that
+``tools.pretrain_transh_hoi`` saved (a ``torch.save`` state dict) into the
+graph head before training.
 """
 
 from __future__ import annotations
@@ -44,8 +45,7 @@ def build_argparser():
     p.add_argument("--checkpoint-path", default="", help="resume from this checkpoint")
     p.add_argument(
         "--transh-init", default="",
-        help="TransH checkpoint (pretrain_transh_hoi) to initialize KG embeddings "
-             "(not available in the port yet)",
+        help="TransH checkpoint (pretrain_transh_hoi) to initialize KG embeddings",
     )
     p.add_argument("--cache-dir", default="./checkpoints")
     p.add_argument("--random-seed", default=1, type=int)
@@ -76,9 +76,6 @@ def main(argv=None):
     its last epoch."""
     parser = build_argparser()
     args = parser.parse_args(argv)
-    if args.transh_init:
-        parser.error("--transh-init reads a flax checkpoint of the KGE toolkit "
-                     "(pretrain_transh_hoi), which the port does not have yet")
 
     import torch
 
@@ -88,6 +85,11 @@ def main(argv=None):
     from skghoi_torch.train.engine import LearningEngine
 
     device = resolve_device("cpu" if args.cpu else None)
+    if args.transh_init:  # read before anything is written
+        from skghoi_torch.tools.pretrain_transh_hoi import load_pretrained_transh
+        from skghoi_torch.train.checkpoint import load_checkpoint
+
+        transh_state = load_checkpoint(args.transh_init)
 
     if args.synthetic:
         import tempfile
@@ -150,6 +152,9 @@ def main(argv=None):
         feedback=args.feedback,
         quirk_box_index_tails=args.replicate_reference_quirks,
     )
+    if args.transh_init:
+        load_pretrained_transh(model, transh_state)
+        print(f"Initialized TransH embeddings from {args.transh_init}")
     engine = LearningEngine(
         model,
         train_loader,

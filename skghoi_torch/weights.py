@@ -18,6 +18,11 @@ A gradient tree (``jax.grad`` over ``params``: the same structure) maps the
 same way, as ``to_state_dict({"params": grads})``: each gradient lands under
 the name of the port parameter it belongs to (frozen-BN terms land on the
 port's buffers, which take no gradient).
+
+:func:`kge_state_dict` maps the parameter tree of a ``skghoi_tpu.kge`` model
+(``{"params": {table: {"embedding": ...}}}``, as ``model.init`` or a decoded
+KGE checkpoint gives it) onto the ``state_dict`` of the port's model of the
+same name: each table keeps its OpenKE name.
 """
 
 from __future__ import annotations
@@ -112,6 +117,13 @@ def to_state_dict(variables: Mapping) -> Dict[str, Tensor]:
     sd: Dict[str, np.ndarray] = {}
     _walk("", params, stats, sd)
     return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
+
+
+def kge_state_dict(params: Mapping) -> Dict[str, Tensor]:
+    """JAX KGE parameter tree (or a gradient tree of it) -> the port KGE
+    model's ``state_dict`` (float32 CPU tensors)."""
+    return {f"{name}.weight": torch.from_numpy(np.array(t["embedding"], dtype=np.float32))
+            for name, t in params["params"].items()}
 
 
 @torch.no_grad()

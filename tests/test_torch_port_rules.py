@@ -18,7 +18,8 @@ from skghoi_torch.entry import build_model, entry, make_batch, verb_mask
 from skghoi_torch.models.backbone import DetectorBackbone
 from skghoi_torch.models.scg import SpatiallyConditionedGraph
 from skghoi_torch.ops.roi_align_cuda import roi_align_cuda
-from skghoi_torch.tools import cache_results, test_hicodet, train_hicodet
+from skghoi_torch.tools import (cache_results, pretrain_transh_hoi, test_hicodet, train_hicodet,
+                                train_kge)
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "skghoi_tpu", "__graft_entry__", "bench")
@@ -47,7 +48,9 @@ def test_no_jax_imports(path):
 def test_sources_scanned():
     names = {p.name for p in SOURCES}
     assert {"roi_align_cuda.py", "scg.py", "weights.py", "chip_smoke.py", "factory.py",
-            "engine.py", "checkpoint.py", "hoi_eval.py", "train_hicodet.py"} <= names
+            "engine.py", "checkpoint.py", "hoi_eval.py", "train_hicodet.py", "sampling.py",
+            "trainer.py", "tester.py", "train_kge.py", "pretrain_transh_hoi.py",
+            "vcoco_eval.py", "vcoco_evaluation.py"} <= names
 
 
 @pytest.mark.parametrize("build", [
@@ -63,8 +66,11 @@ def test_sources_scanned():
     lambda: test_hicodet.main(["--synthetic", "--synthetic-root", _NOWHERE]),
     lambda: cache_results.main(["--dataset", "hicodet", "--synthetic", "--synthetic-root",
                                 _NOWHERE]),
+    lambda: train_kge.main(["--data", _NOWHERE, "--checkpoint", _NOWHERE + "/kge.pt"]),
+    lambda: pretrain_transh_hoi.main(["--synthetic", "--output", _NOWHERE + "/transh.pt"]),
 ], ids=["resolve", "resolve-cuda", "scg", "backbone", "build_model", "make_batch", "verb_mask",
-        "to_device", "train_hicodet", "test_hicodet", "cache_results"])
+        "to_device", "train_hicodet", "test_hicodet", "cache_results", "train_kge",
+        "pretrain_transh_hoi"])
 def test_default_device_is_cuda(build):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the default is usable")
