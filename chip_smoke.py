@@ -85,7 +85,7 @@ Phases, each reporting on its own lines; any failure exits non-zero:
    the same batches, in float64 (parameters within 1e-5 of each tensor's
    max) and in float32 (the same but in at most 2 rows a step of each table,
    where an L1 component rounds to opposite signs), then the raw and
-   filtered ranks of the first 512 test triples, under the same tables,
+   filtered ranks of the first 256 test triples, under the same tables,
    equal on both (a rank may differ only at a float tie within 2^-20 of the
    row's scale, by at most the tied entities; such ranks are counted);
    (b) ``tools.train_kge.main`` at ``--example transe_fb15k237`` and
@@ -104,11 +104,41 @@ Phases, each reporting on its own lines; any failure exits non-zero:
     ``train_hicodet --synthetic --transh-init`` (the SCG's TransH tables
     equal the checkpoint's after loading; one epoch, counting the kernel's
     launches as ``launches_cli_transh``).
+11. Data parallel on the one card: ``torch.distributed.run --standalone
+    --nproc-per-node 1`` starts this script's ``--ddp-worker`` mode, which
+    runs ``train_hicodet.main`` (``--synthetic``, one 4-step epoch, batch 2)
+    and ``train_kge.main`` (``--example transe_fb15k237 --data-parallel``,
+    one epoch on the FB15K237-size KG) in a process group of one over
+    NCCL; each is held against the same worker started plainly (losses
+    and parameters at rtol ``DDP_TOL``; both workers take cuDNN's and
+    PyTorch's deterministic kernels), with the step ms of each, the HOI
+    step's all-reduce timed alone, and the kernel's launches.  Parity across two ranks is the CPU test's
+    (``tests/test_torch_port_ddp.py``): the smoke has one card.
+12. Stage-1 detection at full width: a seeded random torchvision-layout
+    ``fasterrcnn_resnet50_fpn`` ``state_dict`` (91 classes) saved as a
+    ``.pt``, then ``preprocess_detections.main`` over synthetic HICO-DET
+    (8 landscape 120x160 images, the ones ``train_hicodet --synthetic``
+    trains on, and 4 portrait 640x480), float32, ``--score-thresh
+    0.001`` (random weights give class probabilities near 1/91): images/s
+    and one kernel launch an image.  For one image of each canvas: ms of
+    each stage (backbone+FPN, RPN with its NMS, RoI heads, class NMS), NMS
+    steps, one traced image's device ops and idle share; the kernel against
+    its plain version on the real ``[1, 1000, 4]`` proposals (random weights
+    put them all on P2) and on the same proposals with a quarter rescaled
+    onto each of P2..P5, each timed cold and warm against ``roi_bound_ms``;
+    the detector on the card against the
+    CPU, stage by stage: the candidate pools held first, then each flip of
+    an NMS or top-k decision verified as a tie (``selection_flips``), and a
+    box moved 0.5 px on the card must be refused.  Then ``train_hicodet --synthetic`` reads the cached JSON files
+    for one 2-step epoch.  The kernels line gains ``launches_frcnn``,
+    ``us_frcnn_cold`` and ``share_of_bound_frcnn`` (the landscape canvas's
+    real, P2-only proposals) and ``us_frcnn_spread_cold`` and
+    ``share_of_bound_frcnn_spread`` (the same spread over P2..P5).
 
-It prints the adjoint's, the train step's, the CLI path's, the KGE and the
-V-COCO/TransH JSON lines, the kernels' JSON line, the card, then
-``{"ok": true, "device": ...}`` last.  Without a CUDA device it exits with
-code 2 and prints no result.
+It prints the adjoint's, the train step's, the CLI path's, the KGE, the
+V-COCO/TransH, the data-parallel and the detection JSON lines, the kernels'
+JSON line, the card, then ``{"ok": true, "device": ...}`` last.  Without a
+CUDA device it exits with code 2 and prints no result.
 """
 
 from __future__ import annotations
@@ -122,6 +152,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
@@ -1029,7 +1060,7 @@ WN18RR = dict(name="WN18RR", ent=40943, rel=11, train=86835, valid=3034, test=31
 KGE_EPOCHS = 5        # phase 9b: train_kge epochs, enough to show the loss falling
 KGE_WN_EPOCHS = 2     # phase 9c
 KGE_PARITY_STEPS = 3  # phase 9a: trainer steps held card vs CPU
-KGE_PARITY_TEST = 512  # phase 9a: test triples ranked card vs CPU
+KGE_PARITY_TEST = 256  # phase 9a: test triples ranked card vs CPU (the CPU ranking dominates)
 KGE_TIMED_EPOCHS = 3  # per preset, each timed alone after one warm-up epoch
 TIE_TOL = 2.0 ** -20  # a rank may differ only where scores tie within this share of the row's max
 
@@ -1401,6 +1432,552 @@ def phase_vcoco_transh():
     return out
 
 
+DDP_TOL = 1e-6  # phase 11: the NCCL run of one rank against the plain run, rtol
+DET_TRAIN_IMAGES = 8  # phase 12: the landscape images train_hicodet --synthetic trains on
+DET_PORTRAIT_IMAGES = 4  # phase 12: portrait images, so that both canvases reach the kernel
+DET_SCORE_THRESH = "0.001"  # random weights give class probabilities near 1/91, under 0.05
+DET_CPU_IMAGES = 2  # phase 12: images whose detections are held card against CPU
+TIE_REL = 1e-4  # a flip is a tie when the scores involved agree to this share
+IOU_TIE = 1e-3  # ... or the IoU that decided it is this close to the NMS threshold
+
+
+def ddp_worker(kind: str, out_path: str, argv) -> int:
+    """``--ddp-worker KIND OUT -- ARGS``: run ``train_hicodet.main(ARGS)``
+    (``hoi``) or ``train_kge.main(ARGS)`` (``kge``) in this process, started
+    plainly or by torchrun, and write what phase 11 compares to ``OUT``."""
+    import warnings
+
+    import torch.distributed as dist
+
+    from skghoi_torch.ops.roi_align_cuda import roi_align_cuda
+    from skghoi_torch.parallel import distributed
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # Both processes pick the same deterministic kernels, so that the one
+    # difference between them is the process group.
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    device = distributed.device_for(cpu=False)
+    grouped = distributed.initialize(device)  # a group of one under torchrun, none plainly
+    backend = dist.get_backend() if grouped else None
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        out = _ddp_run(kind, argv)
+    out.update(backend=backend, world=distributed.world_size(), launches=roi_align_cuda.launches,
+               device=str(device),
+               nondeterministic=sorted({str(w.message)[:120] for w in seen
+                                        if "deterministic" in str(w.message)}))
+    distributed.shutdown()
+    torch.save(out, out_path)
+    return 0
+
+
+def _ddp_run(kind: str, argv) -> dict:
+    """The tool's losses, step ms and parameters after its run."""
+    import re
+
+    if kind == "hoi":
+        from skghoi_torch.tools import train_hicodet
+
+        engine, _ = run_cli(train_hicodet.main, argv)
+        ends = engine.iteration_ends
+        out = dict(losses=engine.step_losses,
+                   step_ms=[(b - a) * 1e3 for a, b in zip(ends, ends[1:])],
+                   params={k: v.detach().cpu() for k, v in engine.model.state_dict().items()})
+        if torch.distributed.is_initialized():
+            # The train step's one all-reduce alone: the gradients, the total
+            # and the three losses, as build_train_step passes them.
+            from skghoi_torch.parallel.mesh import all_reduce_mean_
+
+            grads = [torch.zeros_like(p) for p in engine.model.parameters() if p.requires_grad]
+            grads += [torch.zeros((), device=grads[0].device) for _ in range(4)]
+            out.update(all_reduce_ms=cuda_ms(lambda: all_reduce_mean_(grads), iters=20),
+                       all_reduce_values=sum(g.numel() for g in grads))
+        return out
+    from skghoi_torch.tools import train_kge
+
+    _, text = run_cli(train_kge.main, argv)
+    with open(argv[argv.index("--json-out") + 1]) as f:
+        row = json.loads(f.read().strip().splitlines()[-1])
+    return dict(losses=[float(x) for x in re.findall(r"^Epoch \d+ \| loss: (\S+) \|", text, re.M)],
+                step_ms=[1e3 / row["steps_per_second"]],
+                params=torch.load(argv[argv.index("--checkpoint") + 1], map_location="cpu",
+                                  weights_only=True))
+
+
+def run_ddp_worker(kind: str, argv, torchrun: bool, out_path: str):
+    """``ddp_worker`` in a new process (under ``torch.distributed.run
+    --standalone --nproc-per-node 1`` when ``torchrun``); its results."""
+    script = os.path.abspath(__file__)
+    cmd = [sys.executable, script, "--ddp-worker", kind, out_path, "--", *argv]
+    if torchrun:
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+               "1", *cmd[1:]]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          cwd=os.path.dirname(script),
+                          env=dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8"))
+    if proc.returncode != 0:
+        raise AssertionError(f"{' '.join(cmd[:8])} ... exited {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    return torch.load(out_path, weights_only=False)
+
+
+def phase_ddp():
+    """Phase 11: data-parallel training on the one card: ``train_hicodet
+    --synthetic`` and ``train_kge --example transe_fb15k237 --data-parallel``
+    under torchrun with one rank (NCCL), each against the same run started
+    plainly, losses and parameters at rtol ``DDP_TOL``."""
+    import tempfile
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="skghoi_ddp_") as tmp:
+        fb = write_synthetic_kg(os.path.join(tmp, "fb15k237"), FB15K237, seed=0)
+        for kind in ("hoi", "kge"):
+            runs = {}
+            for torchrun in (False, True):
+                tag = "torchrun" if torchrun else "plain"
+                if kind == "hoi":
+                    argv = ["--synthetic", "--synthetic-root", os.path.join(tmp, "synth"),
+                            "--cache-dir", os.path.join(tmp, f"ck_{tag}"), "--batch-size", "2",
+                            "--num-workers", "0"]
+                else:
+                    argv = ["--data", fb, "--example", "transe_fb15k237", "--epochs", "1",
+                            "--data-parallel", "--checkpoint", os.path.join(tmp, f"kge_{tag}.pt"),
+                            "--json-out", os.path.join(tmp, f"kge_{tag}.jsonl")]
+                t0 = time.perf_counter()
+                runs[tag] = run_ddp_worker(kind, argv, torchrun, os.path.join(tmp, f"{kind}_{tag}.pt"))
+                runs[tag]["process_s"] = time.perf_counter() - t0
+            plain, dp = runs["plain"], runs["torchrun"]
+            if dp["backend"] != "nccl" or dp["world"] != 1 or plain["backend"] is not None:
+                raise AssertionError(f"ddp {kind}: backend {dp['backend']} world {dp['world']}; "
+                                     f"plain run backend {plain['backend']}")
+            want = [v for step in plain["losses"] for v in (step.values() if kind == "hoi" else [step])]
+            got = [v for step in dp["losses"] for v in (step.values() if kind == "hoi" else [step])]
+            loss_rel = max(abs(g - w) / max(abs(w), 1e-30) for g, w in zip(got, want))
+            param_rel, worst = max((((dp["params"][k].float() - v.float()).abs().max()
+                                     / v.float().abs().max().clamp_min(1e-30)).item(), k)
+                                   for k, v in plain["params"].items() if v.is_floating_point())
+            ok = (len(got) == len(want) > 0 and loss_rel <= DDP_TOL and param_rel <= DDP_TOL
+                  and all(map(math.isfinite, got)))
+            entry = dict(losses_plain=plain["losses"], losses_nccl=dp["losses"], loss_rel=loss_rel,
+                         param_rel=param_rel, step_ms_plain=plain["step_ms"],
+                         step_ms_nccl=dp["step_ms"], launches_plain=plain["launches"],
+                         launches_nccl=dp["launches"], process_s_plain=plain["process_s"],
+                         process_s_nccl=dp["process_s"])
+            if kind == "hoi":
+                entry.update(all_reduce_ms=dp["all_reduce_ms"],
+                             all_reduce_values=dp["all_reduce_values"])
+                log(f"[ddp] hoi: the step's all_reduce_mean_ alone over {dp['all_reduce_values']} "
+                    f"float32 values (flat cat, NCCL all-reduce at world 1, divide, copy back): "
+                    f"{dp['all_reduce_ms']:.3f} ms a call (CUDA events, mean of 20)")
+            log(f"[ddp] {kind}: torchrun --nproc-per-node 1 (NCCL, world 1) against the plain "
+                f"process: {len(got)} losses, max rel diff {loss_rel:.3e}, parameters max rel diff "
+                f"{param_rel:.3e} ({worst}) (rtol {DDP_TOL:g}) {'ok' if ok else 'FAIL'}; step ms plain "
+                f"{[round(x, 3) for x in plain['step_ms']]} NCCL {[round(x, 3) for x in dp['step_ms']]}; "
+                f"roi_align launches plain {plain['launches']} NCCL {dp['launches']}; ops without a "
+                f"deterministic kernel {plain['nondeterministic']}; two-rank "
+                f"parity is the CPU test's (tests/test_torch_port_ddp.py): this smoke has one card")
+            if not ok:
+                raise AssertionError(f"ddp {kind}: the NCCL run differs from the plain run")
+            if kind == "hoi" and not (dp["launches"] == plain["launches"] == len(got) // 3):
+                raise AssertionError(f"ddp hoi: roi_align launches {plain['launches']}/{dp['launches']} "
+                                     f"for {len(got) // 3} steps")
+            out[kind] = entry
+    return out
+
+
+def _np_iou(a, b):
+    from skghoi_torch.ops.ap import _np_box_iou
+
+    return _np_box_iou(np.asarray(a, np.float64), np.asarray(b, np.float64))
+
+
+def _held(a, b, box_tol, score_rel=None, chunk=512):
+    """Whether ``b`` holds each entry of ``a`` (both ``(boxes [N, 4],
+    scores [N], labels [N])``, numpy): an entry of the same label with its
+    box within ``box_tol`` pixels and, unless ``score_rel`` is None, its
+    score within ``score_rel`` of ``a``'s."""
+    out = np.zeros(len(a[1]), bool)
+    for i in range(0, len(out) if len(b[1]) else 0, chunk):
+        sl = slice(i, i + chunk)
+        same = (a[2][sl, None] == b[2][None]) & (
+            np.abs(a[0][sl, None, :] - b[0][None]).max(-1) <= box_tol)
+        if score_rel is not None:
+            same &= np.abs(a[1][sl, None] - b[1][None]) <= score_rel * np.abs(a[1][sl, None])
+        out[sl] = same.any(1)
+    return out
+
+
+def _at_cut(score, label, mine, other, by_label):
+    """Whether an entry of pool ``mine`` that pool ``other`` lacks fell at
+    ``other``'s top-k cut: both pools keep the same number of entries (of
+    its label, with ``by_label``) and its score is at or below ``other``'s
+    lowest (of its label)."""
+    in_mine = mine[2] == label if by_label else np.ones(len(mine[2]), bool)
+    in_other = other[2] == label if by_label else np.ones(len(other[2]), bool)
+    return bool(in_other.any() and in_mine.sum() == in_other.sum()
+                and score <= other[1][in_other].min() * (1 + TIE_REL))
+
+
+def selection_flips(got, want, iou_thresh, pools, by_label, box_tol=1e-2):
+    """Two runs of one selection: the card's (``got``) and the CPU's
+    (``want``) entries kept by NMS and a top-k, each selected from its own
+    candidate pool (``pools``, the card's and the CPU's); all of them
+    ``(boxes [N, 4], scores [N], labels [N])`` of valid entries, numpy.
+    A pool is a top-k, of each label with ``by_label`` (the RPN's per-level
+    top-k).  Returns the entries of each selection with no entry of the same
+    label and box (within ``box_tol`` pixels) in the other, the entries of
+    each pool that the other pool lacks, and those of both that no tie
+    explains.
+
+    The pools must agree: an entry of one is held by the other (same label,
+    box within ``box_tol``, score within ``TIE_REL``) unless it fell at the
+    other's cut (:func:`_at_cut`).  A selected entry must be one of its own
+    pool's, exactly.  An entry ``x`` that one selection keeps and the other
+    does not is a tie when
+    - the other pool lacks it at its cut; or
+    - the other pool holds it and the other selection keeps, in its place, an
+      entry of the same label that this one does not keep, overlapping ``x``
+      at an IoU of at least ``iou_thresh - IOU_TIE`` and scoring at least
+      ``x``'s less ``TIE_REL`` (``x`` was suppressed by a flipped entry: two
+      near-equal scores in other order, or the consequence of such a swap);
+      or
+    - it overlaps a same-label entry of either selection at an IoU within
+      ``IOU_TIE`` of ``iou_thresh`` (a suppression decided at the threshold);
+      or
+    - both selections keep the same number of entries and its score is at or
+      below the other's lowest (displaced at the final cut by another flip).
+    A box moved on one side (decode, clip, gather) breaks the pools'
+    agreement or the selection's membership, and no rule excuses it."""
+    unexplained = []
+    pool_misses = 0
+    for (pa, pb) in (pools, pools[::-1]):
+        for i in np.nonzero(~_held(pa, pb, box_tol, TIE_REL))[0]:
+            pool_misses += 1
+            if not _at_cut(pa[1][i], pa[2][i], pa, pb, by_label):
+                unexplained.append(("pool", float(pa[1][i]), int(pa[2][i])))
+    sides = [np.nonzero(~_held(a, b, box_tol))[0] for a, b in ((got, want), (want, got))]
+    runs = (((got, want), pools, sides[0], sides[1]), ((want, got), pools[::-1], sides[1], sides[0]))
+    for (a, b), (pa, pb), mine, theirs in runs:
+        own = _held(a, pa, 0.0, 0.0)
+        held = _held(a, pb, box_tol, TIE_REL)
+        for i in np.nonzero(~own)[0]:
+            unexplained.append(("not from its pool", float(a[1][i]), int(a[2][i])))
+        for i in mine:
+            s, label = a[1][i], a[2][i]
+            if not own[i]:
+                continue
+            if not held[i]:
+                if not _at_cut(s, label, pa, pb, by_label):
+                    unexplained.append(("other pool", float(s), int(label)))
+                continue
+            rivals = [j for j in theirs if b[2][j] == label and b[1][j] >= s * (1 - TIE_REL)]
+            if rivals and (_np_iou(a[0][i:i + 1], b[0][rivals])[0] >= iou_thresh - IOU_TIE).any():
+                continue
+            near = False
+            for boxes, labels in ((a[0], a[2]), (b[0], b[2])):
+                sel = labels == label
+                if sel.any():
+                    iou = _np_iou(a[0][i:i + 1], boxes[sel])[0]
+                    near |= bool((np.abs(iou - iou_thresh) <= IOU_TIE).any())
+            if near:
+                continue
+            if len(a[1]) == len(b[1]) and s <= b[1].min() * (1 + TIE_REL):
+                continue
+            unexplained.append(("selection", float(s), int(label)))
+    return len(sides[0]) + len(sides[1]), pool_misses, unexplained
+
+
+def _valid(boxes, scores, labels, valid):
+    v = valid.cpu().numpy().astype(bool)
+    return (boxes.cpu().numpy()[v].astype(np.float64), scores.cpu().numpy()[v].astype(np.float64),
+            labels.cpu().numpy()[v])
+
+
+def _all(boxes, scores, labels):
+    return _valid(boxes, scores, labels, torch.ones_like(scores, dtype=torch.bool))
+
+
+def _moved(entries, dx=0.5):
+    """``entries`` with every box shifted ``dx`` pixels right: a planted
+    device error that leaves the scores alone."""
+    return entries[0] + np.array([dx, 0.0, dx, 0.0]), entries[1], entries[2]
+
+
+def hold_detector_on_cpu(card, cpu, image, size):
+    """The detector on the card against the same detector on the CPU, stage
+    by stage: the RPN's pool and proposals (NMS at 0.7 with levels as
+    labels), then the RoI heads' pool and detections on the card's proposals
+    (class NMS at 0.5).  Returns the flips of each, all ties; then plants a
+    box offset on the card's side, which the check must refuse."""
+    out = {}
+    canvas = tuple(image.shape[1:3])
+    with torch.no_grad():
+        feats = card.features(image.cuda())
+        pool = card.rpn_candidates(feats, canvas, size.cuda())
+        props = card.propose(feats, canvas, size.cuda())
+        cand = card.classify(feats, props, size.cuda())
+        det = card.select(cand)
+        cfeats = cpu.features(image)
+        cpool = cpu.rpn_candidates(cfeats, canvas, size)
+        cprops = cpu.propose(cfeats, canvas, size)
+        cprops_from_card = props._replace(boxes=props.boxes.cpu(), scores=props.scores.cpu(),
+                                          valid=props.valid.cpu(), levels=props.levels.cpu())
+        ccand = cpu.classify(cfeats, cprops_from_card, size)
+        cdet = cpu.select(ccand)
+    out["feature_rel"] = max(((f.cpu() - c).abs().max() / c.abs().max()).item()
+                             for f, c in zip(feats, cfeats))
+    stages = {
+        "proposal": (_valid(props.boxes, props.scores, props.levels, props.valid),
+                     _valid(cprops.boxes, cprops.scores, cprops.levels, cprops.valid), 0.7,
+                     (_all(pool.boxes, pool.scores, pool.labels),
+                      _all(cpool.boxes, cpool.scores, cpool.labels)), True),
+        "detection": (_valid(det.boxes, det.scores, det.labels, det.valid),
+                      _valid(cdet.boxes, cdet.scores, cdet.labels, cdet.valid), 0.5,
+                      (_valid(*cand), _valid(*ccand)), False),
+    }
+    bad = {}
+    for name, (got, want, thresh, pools, by_label) in stages.items():
+        out[f"{name}_flips"], out[f"{name}_pool_misses"], bad[name] = selection_flips(
+            got, want, thresh, pools, by_label)
+        planted = [selection_flips(_moved(got), want, thresh, (_moved(pools[0]), pools[1]),
+                                   by_label)[2],
+                   selection_flips(_moved(got), want, thresh, pools, by_label)[2]]
+        if not all(planted):
+            raise AssertionError(f"detector card vs CPU: the {name} check passes a box moved by "
+                                 f"0.5 px on the card")
+    out["detections"] = int(det.valid.sum())
+    if any(bad.values()) or out["feature_rel"] > 1e-3:
+        raise AssertionError(f"detector card vs CPU: unexplained flips {bad}, features rel "
+                             f"{out['feature_rel']:.3e}")
+    return out
+
+
+# sqrt(area) of each quarter of the spread proposals: LevelMapper levels P2..P5
+SPREAD_SIDES = (64.0, 160.0, 320.0, 560.0)
+
+
+def spread_levels(boxes, size):
+    """The detector's ``[1, N, 4]`` proposals with a quarter of them rescaled
+    onto each of P2..P5: each box keeps its aspect ratio (clamped to [1/2,
+    2]) and its centre (moved inward so that it stays in the ``size`` image)
+    and takes its quarter's ``SPREAD_SIDES`` side.  Random weights send every
+    real proposal to P2; a trained RPN spreads them over the levels."""
+    b = boxes[0]
+    n = b.shape[0]
+    side = torch.tensor(SPREAD_SIDES, device=b.device).repeat_interleave(-(-n // 4))[:n]
+    aspect = ((b[:, 2] - b[:, 0]).clamp_min(1.0) / (b[:, 3] - b[:, 1]).clamp_min(1.0)).clamp(0.5, 2.0)
+    w, h = side * aspect.sqrt(), side / aspect.sqrt()
+    hi = size.to(b.device).flatten()
+    cx = ((b[:, 0] + b[:, 2]) / 2).clamp(min=w / 2, max=hi[1] - w / 2)
+    cy = ((b[:, 1] + b[:, 3]) / 2).clamp(min=h / 2, max=hi[0] - h / 2)
+    return torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], -1)[None].contiguous()
+
+
+def check_kernel_frcnn(feats, boxes):
+    """The kernel against its plain version on the detector's inputs
+    (float32 P2..P5, ``[1, 1000, 4]`` proposals), then timed: cold L2 (three
+    copies of the pyramid in turns) and warm, both as CUDA graphs."""
+    from skghoi_torch.ops.roi_align import fpn_level_assignment, multiscale_roi_align
+    from skghoi_torch.ops.roi_align_cuda import roi_align_cuda
+
+    maps = [f.contiguous() for f in feats]
+    got = roi_align_cuda.launch(maps, boxes, fpn_level_assignment(boxes).contiguous(),
+                                torch.empty((*boxes.shape[:2], 7, 7, maps[0].shape[-1]),
+                                            device="cuda"))
+    want = multiscale_roi_align(maps, boxes)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    if not torch.allclose(got, want, rtol=FP32_TOL, atol=FP32_TOL):
+        raise AssertionError(f"roi_align kernel disagrees with plain version on the detector's "
+                             f"proposals: {err:.3e}")
+    levels = fpn_level_assignment(boxes).contiguous()
+    out = torch.empty_like(got)
+    copies = [maps] + [[m.clone() for m in maps] for _ in range(2)]
+    cold = graph_ms([(lambda m: lambda: roi_align_cuda.launch(m, boxes, levels, out))(copies[i % 3])
+                     for i in range(30)], iters=20)
+    warm = graph_ms([lambda: roi_align_cuda.launch(maps, boxes, levels, out)] * 20, iters=20)
+    plain = cuda_ms(lambda: multiscale_roi_align(maps, boxes), iters=5)
+    bound, bound_by, _ = roi_bound_ms(maps, boxes)
+    return dict(err=err, cold_ms=cold, warm_ms=warm, plain_ms=plain, bound_ms=bound,
+                bound_by=bound_by, level_counts=torch.bincount(levels.flatten(), minlength=4).tolist())
+
+
+def time_detector_stages(model, image, size, reps=3):
+    """Median host ms of each stage of one image (the stage's launches and
+    its wait for the device), the NMS steps, and one traced image: device
+    busy time, device ops and idle share.  Returns them with the last run's
+    pyramid and proposals."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from skghoi_torch.detect.frcnn import Candidates
+
+    image, size = image.cuda(), size.cuda()
+    canvas = tuple(image.shape[1:3])
+    stages = dict(backbone_fpn=[], rpn=[], roi_heads=[], class_nms=[], total=[])
+    with torch.no_grad():
+        for _ in range(reps + 1):
+            t = [time.perf_counter()]
+            feats = model.features(image)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            props = model.propose(feats, canvas, size)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            cand = model.classify(feats, props, size)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            model.select(cand)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            for name, a, b in zip(("backbone_fpn", "rpn", "roi_heads", "class_nms"), t, t[1:]):
+                stages[name].append((b - a) * 1e3)
+            stages["total"].append((t[-1] - t[0]) * 1e3)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            model(image, size)
+            torch.cuda.synchronize()
+            traced_ms = (time.perf_counter() - t0) * 1e3
+    device = device_events(prof.key_averages())
+    busy_ms = sum(e.self_device_time_total for e in device) / 1e3
+    if not busy_ms:
+        raise AssertionError("detector: the profiler saw no device time")
+    med = {k: sorted(v[1:])[len(v[1:]) // 2] for k, v in stages.items()}
+    return dict(stage_ms=med, nms_steps=props.candidates + cand.scores.shape[1],
+                rpn_nms_steps=props.candidates, class_nms_steps=cand.scores.shape[1],
+                device_ops=sum(e.count for e in device), device_busy_ms=busy_ms,
+                traced_ms=traced_ms, idle_share=max(0.0, 1 - busy_ms / traced_ms)), feats, props
+
+
+def phase_detect():
+    """Phase 12: stage-1 detection at full width: a seeded random
+    torchvision-layout ``fasterrcnn_resnet50_fpn`` checkpoint through
+    ``preprocess_detections.main`` on synthetic landscape and portrait
+    images; the kernel on the real proposals; card against CPU; the cached
+    JSON files read by one ``train_hicodet --synthetic`` epoch."""
+    import tempfile
+
+    from skghoi_torch.data.synthetic import make_synthetic_hicodet
+    from skghoi_torch.detect.frcnn import FasterRCNN, load_torch_fasterrcnn, random_state_dict
+    from skghoi_torch.ops.roi_align_cuda import roi_align_cuda
+    from skghoi_torch.tools import preprocess_detections, train_hicodet
+    from skghoi_torch.tools.preprocess_detections import detector_input
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="skghoi_det_") as root:
+        t0 = time.perf_counter()
+        sd = random_state_dict(0)
+        ckpt = os.path.join(root, "fasterrcnn_resnet50_fpn.pt")
+        torch.save(sd, ckpt)
+        log(f"[detect] seeded torchvision-layout fasterrcnn_resnet50_fpn state_dict: "
+            f"{sum(v.numel() for v in sd.values())} values, written in {time.perf_counter() - t0:.2f} s")
+        make_synthetic_hicodet(root, "train2015", num_images=DET_TRAIN_IMAGES)  # train_hicodet's
+        make_synthetic_hicodet(root, "test2015", num_images=DET_PORTRAIT_IMAGES,
+                               image_size=(640, 480), seed=1)
+        # COCO's 80 category ids in order onto 0..79: a stand-in for the
+        # dataset's coco80tohico80.json, so labels land in HICO's range.
+        coco = [i for i in range(1, 91) if i not in (12, 26, 29, 30, 45, 66, 68, 69, 71, 83)]
+        with open(os.path.join(root, "coco80tohico80.json"), "w") as f:
+            json.dump({str(c): h for h, c in enumerate(coco)}, f)
+
+        cache = os.path.join(root, "detections")
+        n_images, wall, per_image = 0, 0.0, []
+        roi_align_cuda.launches = 0
+        for part, n in (("train2015", DET_TRAIN_IMAGES), ("test2015", DET_PORTRAIT_IMAGES)):
+            t0 = time.perf_counter()
+            run_cli(preprocess_detections.main, [
+                "--data-root", root, "--partition", part, "--ckpt-path", ckpt,
+                "--cache-dir", cache, "--score-thresh", DET_SCORE_THRESH])
+            wall += time.perf_counter() - t0
+            n_images += n
+            files = sorted(os.listdir(os.path.join(cache, part)))
+            dets = []
+            for name in files:
+                with open(os.path.join(cache, part, name)) as f:
+                    dets.append(json.load(f))
+            if len(files) != n or not all(d["boxes"] and set(d) == {"boxes", "labels", "scores"}
+                                          for d in dets):
+                raise AssertionError(f"preprocess_detections {part}: {len(files)} files")
+            if not all(0 <= l < 80 for d in dets for l in d["labels"]):
+                raise AssertionError(f"preprocess_detections {part}: labels outside HICO's 80")
+            per_image += [len(d["boxes"]) for d in dets]
+        launches = roi_align_cuda.launches
+        if launches != n_images:
+            raise AssertionError(f"detector: {launches} roi_align launches for {n_images} images")
+        out.update(images=n_images, images_per_s=n_images / wall, cli_s=wall, launches=launches,
+                   detections_per_image=per_image)
+        log(f"[detect] preprocess_detections --score-thresh {DET_SCORE_THRESH}, {n_images} images "
+            f"({DET_TRAIN_IMAGES} 120x160 -> 832x1344 canvas, {DET_PORTRAIT_IMAGES} 640x480 -> "
+            f"1344x832), float32: {wall:.3f} s, {out['images_per_s']:.3f} images/s with the "
+            f"tool's host resize and JSON writes (one model load a partition); roi_align launches "
+            f"{launches}")
+
+        card = FasterRCNN(box_score_thresh=float(DET_SCORE_THRESH))
+        card.load_state_dict(load_torch_fasterrcnn(sd), strict=True)
+        cpu = FasterRCNN(box_score_thresh=float(DET_SCORE_THRESH), device="cpu")
+        cpu.load_state_dict(load_torch_fasterrcnn(sd), strict=True)
+        from skghoi_torch.data.hicodet import HICODet
+
+        out["canvases"] = {}
+        for part, tag in (("train2015", "landscape"), ("test2015", "portrait")):
+            ds = HICODet(os.path.join(root, f"hico_20160224_det/images/{part}"),
+                         os.path.join(root, f"instances_{part}.json"))
+            arr = np.asarray(ds[0][0], np.float32) / 255.0
+            padded, hw, _ = detector_input(arr)
+            image = torch.from_numpy(padded)[None]
+            size = torch.tensor([[float(hw[0]), float(hw[1])]])
+            entry, feats, props = time_detector_stages(card, image, size)
+            roi = check_kernel_frcnn(feats, props.boxes)
+            spread = check_kernel_frcnn(feats, spread_levels(props.boxes, size))
+            if 0 in spread["level_counts"]:
+                raise AssertionError(f"spread proposals leave a level empty: {spread['level_counts']}")
+            entry["kernel"], entry["kernel_spread"] = roi, spread
+            entry["cpu"] = hold_detector_on_cpu(card, cpu, image, size)
+            out["canvases"][f"{tag} {padded.shape[0]}x{padded.shape[1]}"] = entry
+            st = entry["stage_ms"]
+            log(f"[detect] {tag} {padded.shape[0]}x{padded.shape[1]} ({hw[0]}x{hw[1]} image): ms an "
+                f"image (median of 3, host clock to synchronize) backbone+FPN {st['backbone_fpn']:.3f}, "
+                f"RPN with its NMS {st['rpn']:.3f}, RoI heads {st['roi_heads']:.3f}, class NMS "
+                f"{st['class_nms']:.3f}, total {st['total']:.3f} ({1e3 / st['total']:.3f} images/s "
+                f"for the model alone); NMS steps {entry['nms_steps']} ({entry['rpn_nms_steps']} RPN + "
+                f"{entry['class_nms_steps']} class); traced image {entry['traced_ms']:.3f} ms, device "
+                f"busy {entry['device_busy_ms']:.3f} ms in {entry['device_ops']} device ops: idle "
+                f"{entry['idle_share']:.1%}")
+            for what, r in (("the detector's proposals", roi),
+                            ("the same proposals spread over the levels (sides "
+                             f"{'/'.join(f'{v:g}' for v in SPREAD_SIDES)})", spread)):
+                log(f"[detect] roi_align on {what} {tuple(props.boxes.shape)} (levels P2..P5 "
+                    f"{r['level_counts']}), float32 C=256: max|kernel-plain| {r['err']:.3e} "
+                    f"(rtol=atol={FP32_TOL:g}) ok; cold L2 {r['cold_ms'] * 1e3:.3f} us, warm "
+                    f"{r['warm_ms'] * 1e3:.3f} us (CUDA graph), plain {r['plain_ms']:.4f} ms; bound "
+                    f"{r['bound_ms'] * 1e3:.3f} us by {r['bound_by']}: cold at "
+                    f"{r['bound_ms'] / r['cold_ms']:.1%} of it")
+            c = entry["cpu"]
+            log(f"[detect] card against CPU ({tag}): features max rel diff {c['feature_rel']:.3e}; "
+                f"RPN pool entries the other run lacks {c['proposal_pool_misses']}, proposal flips "
+                f"{c['proposal_flips']}; RoI-head pool misses {c['detection_pool_misses']}, detection "
+                f"flips {c['detection_flips']} of {c['detections']} detections; each a tie (score "
+                f"within {TIE_REL:g} or IoU within {IOU_TIE:g} of the NMS threshold, or at a cut); a "
+                f"box moved 0.5 px on the card is refused at both stages")
+
+        roi_align_cuda.launches = 0
+        engine, text = run_cli(train_hicodet.main, [
+            "--synthetic", "--synthetic-root", root, "--train-detection-dir",
+            os.path.join(cache, "train2015"), "--box-score-thresh", "0", "--batch-size", "4",
+            "--num-workers", "0", "--cache-dir", os.path.join(root, "ck")])
+        losses = [v for step in engine.step_losses for v in step.values()]
+        if ("Training complete." not in text or engine.iteration != 2
+                or not all(map(math.isfinite, losses)) or roi_align_cuda.launches != 2):
+            raise AssertionError(f"train_hicodet on the detector's JSON: {engine.iteration} steps, "
+                                 f"losses {losses}, {roi_align_cuda.launches} launches")
+        out["stage2"] = dict(steps=engine.iteration, losses=engine.step_losses,
+                             launches=roi_align_cuda.launches)
+        log(f"[detect] train_hicodet --synthetic --train-detection-dir <the detector's JSON> "
+            f"--box-score-thresh 0: {engine.iteration} steps, losses {engine.step_losses}")
+    return out
+
+
 @torch.no_grad()
 def profile_forward(model, batch, ovm, profile_dir, request_s):
     """One traced forward (device busy time, kernel count, top ops) and the
@@ -1451,11 +2028,16 @@ def main() -> int:
     ap.add_argument("--profile", default=None, help="directory for a torch.profiler trace")
     ap.add_argument("--baseline-source", default=None,
                     help="another roi_align.cu with the same C interface, timed in turns beside this one")
-    args = ap.parse_args()
+    ap.add_argument("--ddp-worker", nargs=2, metavar=("KIND", "OUT"), default=None,
+                    help="phase 11's worker: run train_hicodet (hoi) or train_kge (kge) with the "
+                         "arguments after --, write its results to OUT")
+    args, tool_args = ap.parse_known_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if args.ddp_worker:
+        return ddp_worker(*args.ddp_worker, [a for a in tool_args if a != "--"])
     from skghoi_torch.entry import make_batch
     from skghoi_torch.models.interaction_head import filter_detections
     from skghoi_torch.ops.roi_align_cuda import RoIAlignKernel, roi_align_cuda
@@ -1494,6 +2076,16 @@ def main() -> int:
     hoi = phase_vcoco_transh()
     kernel["launches_cli_vcoco"] = hoi["vcoco"]["launches"]
     kernel["launches_cli_transh"] = hoi["transh_init"]["launches"]
+    ddp = phase_ddp()
+    kernel["launches_ddp"] = ddp["hoi"]["launches_nccl"]
+    detect = phase_detect()
+    landscape = next(v for k, v in detect["canvases"].items() if k.startswith("landscape"))
+    kernel["launches_frcnn"] = detect["launches"]
+    kernel["us_frcnn_cold"] = landscape["kernel"]["cold_ms"] * 1e3
+    kernel["share_of_bound_frcnn"] = landscape["kernel"]["bound_ms"] / landscape["kernel"]["cold_ms"]
+    spread = landscape["kernel_spread"]
+    kernel["us_frcnn_spread_cold"] = spread["cold_ms"] * 1e3
+    kernel["share_of_bound_frcnn_spread"] = spread["bound_ms"] / spread["cold_ms"]
 
     log(f"[card] {card}")
     print(json.dumps({"library_ops": [adjoint]}))
@@ -1501,6 +2093,8 @@ def main() -> int:
     print(json.dumps({"cli": cli}))
     print(json.dumps({"kge": kge}))
     print(json.dumps({"vcoco_transh": hoi}))
+    print(json.dumps({"ddp": ddp}))
+    print(json.dumps({"detect": detect}))
     print(json.dumps({"kernels": [kernel]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

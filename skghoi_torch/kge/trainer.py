@@ -19,6 +19,14 @@ every rule, as ``optax.add_decayed_weights`` chained before the rule.
 (numpy arrays or tensors; :func:`~skghoi_torch.kge.sampling.batch_to` moves
 it), in place of the device sampler: the parity tests feed the port and the
 JAX package the same batches this way.
+
+With a process group up (:mod:`skghoi_torch.parallel.distributed`) the
+trainer is data parallel over its ranks, as JAX's ``shard_map`` over the
+``data`` mesh is (``skghoi_tpu/kge/trainer.py:123-160``): each rank draws
+``batch_size // world_size`` rows from its own generator (seeded ``seed +
+rank``), and after the backward one all-reduce averages the gradients and
+the loss, so every rank applies the same update.  With no group it is a
+rank of one, and all three are the identity.
 """
 
 from __future__ import annotations
@@ -31,6 +39,8 @@ import torch
 
 from skghoi_torch.kge.sampling import Batch, DeviceKG, batch_to, sample_batch, sample_batch_oneside
 from skghoi_torch.kge.strategy import NegativeSampling
+from skghoi_torch.parallel.distributed import rank, world_size
+from skghoi_torch.parallel.mesh import all_reduce_mean_
 
 
 def make_optimizer(opt_method: str, params, alpha: float,
@@ -73,8 +83,8 @@ class Trainer:
         self.train_times = train_times
         self.log_fn = log_fn
         self.optimizer = make_optimizer(opt_method, model.parameters(), alpha, weight_decay)
-        self.batch_size = max(1, int(len(kg.train_h) / nbatches))
-        self.generator = torch.Generator(device=kg.device).manual_seed(seed)
+        self.batch_size = max(1, int(len(kg.train_h) / nbatches) // world_size())
+        self.generator = torch.Generator(device=kg.device).manual_seed(seed + rank())
         if batches is not None:
             self._next_batch = lambda: batch_to(batches(), kg.device)
         else:
@@ -87,8 +97,10 @@ class Trainer:
         loss = self.strategy(self.model, self._next_batch())
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        loss = loss.detach()
+        all_reduce_mean_([p.grad for p in self.model.parameters() if p.grad is not None] + [loss])
         self.optimizer.step()
-        return loss.detach()
+        return loss
 
     def run_epoch(self) -> torch.Tensor:
         """``nbatches`` steps; the sum of their losses, on the device."""

@@ -35,6 +35,8 @@ from skghoi_torch.ops.losses import (
     margin_ranking_loss,
 )
 from skghoi_torch.ops.roi_align_cuda import roi_align_auto
+from skghoi_torch.parallel.distributed import world_size
+from skghoi_torch.parallel.mesh import all_reduce_sum
 
 Tensor = torch.Tensor
 
@@ -170,15 +172,26 @@ class InteractionHead(nn.Module):
     def _compute_losses(self, scores: Tensor, logits_s: Tensor, gh: GraphHeadOutputs,
                         valid_entries: Tensor) -> dict:
         """The three losses (ref ``:153-235``), each summed over its entries
-        and divided by its positive count (at least 1)."""
-        n_p_cls = (gh.labels * valid_entries).sum().clamp_min(1.0)
+        and divided by its positive count (at least 1).
+
+        Under data parallelism the counts are the sums over all ranks (the
+        reference all-reduces them, ``heads/...head.py:167-172``; JAX gets
+        global sums from sharding), and each rank's loss is its local sum x
+        world size / the global count, so that the mean of the ranks'
+        gradients is the whole batch's; the TransH term's mean over its sampled
+        pairs is taken over every rank's pairs as well."""
+        counts = all_reduce_sum(torch.stack([
+            (gh.labels * valid_entries).sum(), (gh.unary_labels * gh.pair_valid).sum(),
+            gh.transh_mask.to(gh.labels.dtype).sum()]))
+        n_p_cls, n_p_unary = (counts[:2].clamp_min(1.0) / world_size()).unbind()
         hoi_loss = binary_focal_loss(scores, gh.labels, gamma=C.FOCAL_GAMMA_HOI,
                                      reduction="sum", mask=valid_entries) / n_p_cls
-        n_p_unary = (gh.unary_labels * gh.pair_valid).sum().clamp_min(1.0)
         interactiveness_loss = binary_focal_loss_with_logits(
             logits_s, gh.unary_labels, gamma=C.FOCAL_GAMMA_INTERACTIVENESS, reduction="sum",
             mask=gh.pair_valid) / n_p_unary
+        # The margin ranking loss is a mean over the sampled pairs: over all
+        # ranks' pairs too.
         transh_loss = margin_ranking_loss(gh.transh_pos, gh.transh_neg, margin=C.TRANSH_MARGIN,
-                                          mask=gh.transh_mask) / n_p_unary
+                                          mask=gh.transh_mask, count=counts[2]) / n_p_unary
         return dict(hoi_loss=hoi_loss, interactiveness_loss=interactiveness_loss,
                     transh_loss=transh_loss)

@@ -62,15 +62,18 @@ def binary_focal_loss_with_logits(logits: Tensor, y: Tensor, alpha: float = FOCA
 
 
 def margin_ranking_loss(positive_scores: Tensor, negative_scores: Tensor, margin: float = 1.0,
-                        mask: Optional[Tensor] = None) -> Tensor:
+                        mask: Optional[Tensor] = None, count: Optional[Tensor] = None) -> Tensor:
     """``max(p - n, -margin).mean() + margin`` over elementwise pairs of
     distance-style scores; with a ``mask`` the mean runs over valid pairs, and
-    an all-false mask gives exactly 0 (no margin offset)."""
+    an all-false mask gives exactly 0 (no margin offset).
+
+    ``count`` replaces the mask's own count of valid pairs as the mean's
+    denominator: under data parallelism it is the count over all ranks, and
+    each valid pair carries its margin in the sum, so that the ranks' results
+    add up to the whole batch's mean."""
     raw = (positive_scores - negative_scores).clamp_min(-margin)
     if mask is None:
         return raw.mean() + margin
-    n_valid = mask.to(raw.dtype).sum()
-    mean = torch.where(mask, raw, torch.zeros((), dtype=raw.dtype, device=raw.device)).sum()
-    mean = mean / n_valid.clamp_min(1.0)
-    return torch.where(n_valid > 0, mean + margin, torch.zeros((), dtype=raw.dtype,
-                                                                device=raw.device))
+    n = mask.to(raw.dtype).sum() if count is None else count
+    zero = torch.zeros((), dtype=raw.dtype, device=raw.device)
+    return torch.where(mask, raw + margin, zero).sum() / n.clamp_min(1.0)

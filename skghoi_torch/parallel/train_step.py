@@ -10,6 +10,15 @@ the schedule's count exactly as they were; the gradients are zeroed.
 
 The guard reads one flag on the host per step: the step waits there for the
 backward to finish before it issues the update (``PERF.md`` gives the cost).
+
+Under data parallelism (a process group from
+:mod:`skghoi_torch.parallel.distributed`) the gradients, the total and the
+losses are averaged over the ranks by one flat all-reduce after the
+backward (:func:`~skghoi_torch.parallel.mesh.all_reduce_mean_`): every rank
+then holds the whole batch's gradient and losses (the losses' normalisers
+are global, see ``InteractionHead._compute_losses``), and the guard reads
+the averaged values, so a NaN on any rank skips the update on all of them.
+This is the explicit counterpart of the ``psum`` that XLA inserts in JAX.
 """
 
 from __future__ import annotations
@@ -17,6 +26,8 @@ from __future__ import annotations
 from typing import Callable, Optional, Sequence
 
 import torch
+
+from skghoi_torch.parallel.mesh import all_reduce_mean_
 
 ALL_LOSSES = ("hoi_loss", "interactiveness_loss", "transh_loss")
 
@@ -47,6 +58,10 @@ def build_train_step(model, optimizer: torch.optim.Optimizer, object_verb_mask: 
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in params]
+        total = total.detach()
+        losses = {k: v.detach() for k, v in out.losses.items()}
+        # One all-reduce averages the gradients, the total and the losses.
+        all_reduce_mean_([*grads, total, *losses.values()])
         # The largest |g| of each tensor: NaN or inf if any entry is.
         peaks = torch.stack(torch._foreach_norm(grads, float("inf")))
         applied = bool(torch.isfinite(total) & torch.isfinite(peaks).all())
@@ -54,8 +69,7 @@ def build_train_step(model, optimizer: torch.optim.Optimizer, object_verb_mask: 
             optimizer.step()
         else:
             optimizer.zero_grad(set_to_none=False)
-        losses = {k: v.detach() for k, v in out.losses.items()}
-        return total.detach(), losses, out, applied
+        return total, losses, out, applied
 
     step.model, step.optimizer = model, optimizer
     return step

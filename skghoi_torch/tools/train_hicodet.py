@@ -5,9 +5,19 @@
 Mirrors ``skghoi_tpu.tools.train_hicodet`` (the reference train entry,
 ``configures/hicodet/adamixer_transH_spatial_r50_main.py``): the same flags
 and defaults (lr 1e-4, backbone lr-decay 0.1, wd 1e-4, milestone at epoch 6,
-batch 4, print interval 2000, cache dir ./checkpoints) and the same log
-lines.  One process drives one card; the global batch is ``--batch-size``.
-It runs on ``cuda`` unless ``--cpu`` is given, and raises without a card.
+batch 4 per device, print interval 2000, cache dir ./checkpoints) and the
+same log lines.  It runs on ``cuda`` unless ``--cpu`` is given, and raises
+without a card.
+
+Run plainly, one process drives one card.  Under ``torchrun`` it trains data
+parallel, one process per card (NCCL; gloo with ``--cpu``)::
+
+    python -m torch.distributed.run --nproc-per-node 4 \
+        -m skghoi_torch.tools.train_hicodet --batch-size 4 ...
+
+Each rank loads its shard of the data and a batch of ``--batch-size``
+images, so the global batch is ``--batch-size`` x the number of processes;
+the engine averages the gradients and only rank 0 logs and saves.
 The model trains in float32 with ``frozen_stages=1`` (the model's defaults),
 from seeded random weights (``weights.init_parameters``).
 
@@ -82,9 +92,13 @@ def main(argv=None):
     from skghoi_torch.data.factory import DataFactory, HOILoader
     from skghoi_torch.device import resolve_device
     from skghoi_torch.entry import build_model
+    from skghoi_torch.parallel import distributed
+    from skghoi_torch.parallel.mesh import all_gather_object, replicate
     from skghoi_torch.train.engine import LearningEngine
 
-    device = resolve_device("cpu" if args.cpu else None)
+    device = resolve_device(distributed.device_for(args.cpu))
+    own_group = distributed.initialize(device)
+    world, rank = distributed.world_size(), distributed.rank()
     if args.transh_init:  # read before anything is written
         from skghoi_torch.tools.pretrain_transh_hoi import load_pretrained_transh
         from skghoi_torch.train.checkpoint import load_checkpoint
@@ -96,13 +110,15 @@ def main(argv=None):
 
         from skghoi_torch.data.synthetic import make_synthetic_hicodet, make_synthetic_vcoco
 
-        root = args.synthetic_root or tempfile.mkdtemp(prefix="skghoi_synth_")
-        if args.dataset == "hicodet":
-            part = "train2015"
-            make_synthetic_hicodet(root, part, num_images=8)
-        else:
-            part = "train"
-            make_synthetic_vcoco(root, part, num_images=8)
+        # Rank 0 writes the dataset; every rank reads it from rank 0's root.
+        root = args.synthetic_root or (
+            tempfile.mkdtemp(prefix="skghoi_synth_") if distributed.is_main() else None)
+        root = all_gather_object(root)[0]
+        part = "train2015" if args.dataset == "hicodet" else "train"
+        if distributed.is_main():
+            make = make_synthetic_hicodet if args.dataset == "hicodet" else make_synthetic_vcoco
+            make(root, part, num_images=8)
+        distributed.barrier()
         args.partitions = [part]
         args.data_root = root
         # Respect an explicit detection cache; default to the GT-derived
@@ -119,7 +135,8 @@ def main(argv=None):
         factory_kwargs = {}
 
     batch = args.batch_size
-    print(f"Devices: 1 ({device.type}); global batch {batch}")
+    if distributed.is_main():
+        print(f"Devices: {world} ({device.type}); global batch {batch * world}")
 
     if args.device_resize:
         factory_kwargs["device_resize"] = True
@@ -132,7 +149,7 @@ def main(argv=None):
     )
     train_loader = HOILoader(
         train_factory, batch, shuffle=True, with_targets=True, seed=args.random_seed,
-        num_workers=args.num_workers,
+        num_workers=args.num_workers, num_shards=world, shard_index=rank,
     )
     val_loader = None
     if not args.synthetic and len(args.partitions) > 1:
@@ -141,7 +158,7 @@ def main(argv=None):
             flip=False, **factory_kwargs,
         )
         val_loader = HOILoader(val_factory, batch, shuffle=False, with_targets=False,
-                               num_workers=args.num_workers)
+                               num_workers=args.num_workers, num_shards=world, shard_index=rank)
 
     num_classes = C.HICO_NUM_VERBS if args.dataset == "hicodet" else C.VCOCO_NUM_ACTIONS
     model = build_model(
@@ -155,6 +172,7 @@ def main(argv=None):
     if args.transh_init:
         load_pretrained_transh(model, transh_state)
         print(f"Initialized TransH embeddings from {args.transh_init}")
+    replicate(model)
     engine = LearningEngine(
         model,
         train_loader,
@@ -173,7 +191,10 @@ def main(argv=None):
     if args.checkpoint_path:
         engine.resume(args.checkpoint_path)
     engine.run(args.num_epochs)
-    print("Training complete.")
+    if distributed.is_main():
+        print("Training complete.")
+    if own_group:
+        distributed.shutdown()
     return engine
 
 

@@ -14,9 +14,16 @@ Example::
         --example transe_fb15k237
 
 The same flags as the JAX tool, except that ``--device`` (default ``cuda``;
-``cpu`` on request) replaces ``--cpu``, and ``--data-parallel`` is refused:
-data-parallel training belongs to the port's distributed (DDP) slice.
-Checkpoints are ``torch.save`` state dicts with OpenKE's table names.
+``cpu`` on request) replaces ``--cpu``.  ``--data-parallel`` trains over the
+processes that torchrun started, one per card (each samples its share of the
+batch; gradients and loss are averaged, see :class:`~skghoi_torch.kge.trainer.Trainer`)::
+
+    python -m torch.distributed.run --nproc-per-node 4 -m skghoi_torch.tools.train_kge \
+        --data benchmarks/FB15K237 --example transe_fb15k237 --data-parallel
+
+Only rank 0 evaluates, prints the result and writes files; run plainly,
+``--data-parallel`` is a group of one.  Checkpoints are ``torch.save`` state
+dicts with OpenKE's table names.
 
 Published parity target: TransE FB15K237 Hits@10(filter) ~ 0.476
 (reference ``OpenKE/README.md:90``).
@@ -25,6 +32,7 @@ Published parity target: TransE FB15K237 Hits@10(filter) ~ 0.476
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import time
@@ -52,6 +60,7 @@ from skghoi_torch.kge import (
     TransR,
 )
 from skghoi_torch.kge.sampling import DeviceKG
+from skghoi_torch.parallel import distributed
 
 
 def _trans_margin(a):
@@ -106,7 +115,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--regul-rate", type=float, default=0.0)
     p.add_argument("--l3-regul-rate", type=float, default=0.0)
     p.add_argument("--data-parallel", action="store_true",
-                   help="refused: data-parallel KGE training comes with the port's DDP slice")
+                   help="train over the ranks that torchrun started, one per card "
+                        "(batch split across them, gradients averaged)")
     p.add_argument("--sampling-mode", default="normal", choices=["normal", "oneside"],
                    help="'oneside': per-row corruption side + folded scoring "
                         "(the reference's cross-mode structure)")
@@ -140,9 +150,6 @@ def parse_args(argv=None) -> argparse.Namespace:
     """Parsed flags with the ``--example`` preset applied under any explicit flag."""
     parser = build_argparser()
     args = parser.parse_args(argv)
-    if args.data_parallel:
-        parser.error("--data-parallel: data-parallel KGE training comes with the port's "
-                     "distributed (DDP) slice; one card trains without it")
     if args.example:
         from skghoi_torch.kge.examples import EXAMPLES
 
@@ -165,7 +172,8 @@ def build_model(args, data: KGData, device: torch.device):
 
 
 def build_trainer(args, model, kg: DeviceKG, epochs: int, batches=None) -> Trainer:
-    """The trainer of ``args`` (``batches``: see :class:`~skghoi_torch.kge.trainer.Trainer`)."""
+    """The trainer of ``args`` (``batches``: see :class:`~skghoi_torch.kge.trainer.Trainer`);
+    data parallel when ``--data-parallel`` started a process group."""
     strategy = NegativeSampling(loss=LOSSES[args.loss](args), regul_rate=args.regul_rate,
                                 l3_regul_rate=args.l3_regul_rate)
     return Trainer(model, strategy, kg, nbatches=args.nbatches, neg_rate=args.neg_ent,
@@ -182,11 +190,24 @@ def _save(model, path: str) -> None:
 
 def main(argv=None):
     """Returns the :class:`~skghoi_torch.kge.tester.LinkPredictionResult`
-    (``None`` with ``--skip-eval``)."""
+    (``None`` with ``--skip-eval``, and on ranks other than 0)."""
     from skghoi_torch.device import resolve_device
 
     args = parse_args(argv)
-    device = resolve_device(args.device)
+    device = resolve_device(args.device if args.device is not None
+                            else distributed.device_for(cpu=False))
+    own_group = args.data_parallel and distributed.initialize(device)
+    try:
+        if distributed.is_main():
+            return _run(args, device)
+        with open(os.devnull, "w") as quiet, contextlib.redirect_stdout(quiet):
+            return _run(args, device)  # the log lines are rank 0's
+    finally:
+        if own_group:
+            distributed.shutdown()
+
+
+def _run(args, device):
     data = KGData.load(args.data, with_type_constrain=args.type_constrain)
     kg = DeviceKG.from_kgdata(data, device)
     print(f"Loaded {args.data}: {data.ent_tot} entities, {data.rel_tot} relations, "
@@ -219,10 +240,13 @@ def main(argv=None):
         trainer.run()  # ends on the last epoch's loss read
         train_time = time.time() - t0
         steps = args.epochs * args.nbatches
-        print(f"Training: {train_time:.1f}s for {steps} steps ({steps / max(train_time, 1e-9):.1f} steps/s)")
+        print(f"Training: {train_time:.1f}s for {steps} steps ({steps / max(train_time, 1e-9):.1f} "
+              f"steps/s)" + (f" on {distributed.world_size()} ranks" if args.data_parallel else ""))
     else:
         train_time, steps = 0.0, 0
         print("Training skipped (--epochs 0): evaluating loaded/initial params")
+    if not distributed.is_main():
+        return None
     if args.checkpoint:
         _save(model, args.checkpoint)
 

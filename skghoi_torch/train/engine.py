@@ -18,6 +18,18 @@ the device, or from ``gumbel()``, a callable that returns each iteration's
 ``[B, 15*30*117]`` noise (the tests replay the JAX engine's draws).  As in
 JAX, :meth:`LearningEngine.resume` restores the weights, the optimizer and
 the counters, not the noise stream.
+
+Under data parallelism (a process group from
+:mod:`skghoi_torch.parallel.distributed`, one process per card) each rank
+trains on its shard of the data (the loaders' ``num_shards``/``shard_index``,
+the reference's ``DistributedSampler``); the train step averages gradients
+and losses over the ranks.  The ranks run the same number of steps an epoch:
+a rank whose shard gives fewer batches takes its first batches again, as
+``DistributedSampler`` repeats samples to even the shards out, and those
+repeats do not feed the training mAP.  Each rank takes its rows of one global
+Gumbel draw (``[world * B, ...]``, the same generator seed on every rank).
+The per-image results of every rank are gathered before the training and the
+validation mAP, and only rank 0 prints the log lines and writes checkpoints.
 """
 
 from __future__ import annotations
@@ -33,7 +45,10 @@ from skghoi_torch import constants as C
 from skghoi_torch.data.device_preprocess import prepare_batch
 from skghoi_torch.data.factory import to_device
 from skghoi_torch.eval.hoi_eval import to_numpy, unpack_image_results
+from skghoi_torch.models.graph_head import gumbel_noise
 from skghoi_torch.ops.ap import BoxPairAssociation, DetectionAPMeter
+from skghoi_torch.parallel.distributed import is_main, rank, world_size
+from skghoi_torch.parallel.mesh import all_gather_object, all_reduce_max
 from skghoi_torch.parallel.train_step import build_eval_step, build_train_step
 from skghoi_torch.train.checkpoint import (
     load_checkpoint,
@@ -66,7 +81,8 @@ class LearningEngine:
     ``train_loader``; ``val_loader`` gives the validation mAP of each epoch.
 
     ``iteration_ends`` holds the host clock at the end of each iteration of
-    the last :meth:`run` (after its losses reached the host)."""
+    the last :meth:`run` (after its losses reached the host), and
+    ``step_losses`` that iteration's three losses as floats."""
 
     def __init__(
         self,
@@ -96,14 +112,14 @@ class LearningEngine:
         self.cache_dir = cache_dir
         self.epoch = 0
         self.iteration = 0
-        self.iteration_ends = []
+        self.iteration_ends, self.step_losses = [], []
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.gumbel = gumbel
 
         ovm = torch.as_tensor(np.asarray(object_verb_mask, np.float32), device=self.device)
         self.optimizer = build_optimizer(
             model, learning_rate=learning_rate, lr_decay=lr_decay, weight_decay=weight_decay,
-            steps_per_epoch=max(len(train_loader), 1), milestones=milestones,
+            steps_per_epoch=max(all_reduce_max(len(train_loader)), 1), milestones=milestones,
         )
         self.train_step = build_train_step(model, self.optimizer, ovm, loss_keys=loss_keys)
         self.eval_step = build_eval_step(model, ovm)
@@ -119,21 +135,44 @@ class LearningEngine:
         there."""
         return prepare_batch(to_device(batch, self.device), loader.factory)
 
+    def _epoch_batches(self):
+        """``(batch, indices, repeat)`` for as many steps as the longest
+        rank's shard has batches this epoch: the loader's batches, then its
+        first ones again where this rank's shard ran short (``repeat`` True)."""
+        own = len(self.train_loader)
+        steps, step = all_reduce_max(own), 0
+        if steps and not own:
+            raise RuntimeError(f"rank {rank()} has no training batch in its shard")
+        while step < steps:
+            for batch, indices in self.train_loader:
+                if step == steps:
+                    return
+                yield batch, indices, step >= own
+                step += 1
+
+    def _gumbel(self, batch_size: int) -> torch.Tensor:
+        """This rank's rows of the step's global TransH noise."""
+        lo, hi = rank() * batch_size, (rank() + 1) * batch_size
+        if self.gumbel is not None:
+            return self.gumbel()[lo:hi].to(self.device)
+        cols = C.MAX_HUMAN * C.MAX_BOXES * self.num_classes
+        return gumbel_noise((world_size() * batch_size, cols), self.generator, self.device)[lo:hi]
+
     def run(self, num_epochs: int):
-        self.iteration_ends = []
+        self.iteration_ends, self.step_losses = [], []
         for _ in range(num_epochs):
             self.train_loader.set_epoch(self.epoch)
             meter = DetectionAPMeter(self.num_classes, algorithm="11P")
-            for batch, indices in self.train_loader:
-                gumbel = None if self.gumbel is None else self.gumbel().to(self.device)
+            for batch, indices, repeat in self._epoch_batches():
                 _, _, out, _ = self.train_step(
-                    self._to_device(batch, self.train_loader), generator=self.generator,
-                    gumbel=gumbel)
+                    self._to_device(batch, self.train_loader),
+                    gumbel=self._gumbel(len(batch.images)))
                 out = to_numpy(out)  # one pass to the host: losses and outputs
                 losses = out.losses
                 hoi = float(losses["hoi_loss"])
                 if np.isnan(hoi):
                     raise ValueError("The HOI loss is NaN")  # utils.py:218-219
+                self.step_losses.append({k: float(v) for k, v in losses.items()})
                 self.hoi_loss.append(hoi)
                 self.intr_loss.append(float(losses["interactiveness_loss"]))
                 self.transh_loss.append(float(losses["transh_loss"]))
@@ -146,17 +185,19 @@ class LearningEngine:
                 self.iteration += 1
                 if self.iteration % self.print_interval == 0:
                     self._print_statistics()
-                self._log_results(out, batch, indices, meter)
+                if not repeat:
+                    self._log_results(out, batch, indices, meter)
                 self.iteration_ends.append(time.perf_counter())
             self._on_end_epoch(meter)
         return self.model
 
     def _print_statistics(self):
-        print(
-            f"=> HOI classification loss: {self.hoi_loss.mean():.4f},",
-            f"interactiveness loss: {self.intr_loss.mean():.4f},",
-            f"transH loss: {self.transh_loss.mean():.4f}",
-        )
+        if is_main():
+            print(
+                f"=> HOI classification loss: {self.hoi_loss.mean():.4f},",
+                f"interactiveness loss: {self.intr_loss.mean():.4f},",
+                f"transH loss: {self.transh_loss.mean():.4f}",
+            )
         self.hoi_loss.reset()
         self.intr_loss.reset()
         self.transh_loss.reset()
@@ -172,27 +213,40 @@ class LearningEngine:
             k = res["prediction"]
             meter.append(res["scores"], k, out.labels[slot, x, y, k])
 
+    @staticmethod
+    def _mean_ap(meter: DetectionAPMeter) -> float:
+        """Mean AP over what every rank's ``meter`` holds, rank by rank."""
+        merged = DetectionAPMeter(meter.num_cls, meter.num_gt, meter.algorithm)
+        for part in all_gather_object((meter._scores, meter._labels)):
+            for c, (scores, labels) in enumerate(zip(*part)):
+                merged._scores[c].extend(scores)
+                merged._labels[c].extend(labels)
+        return float(merged.eval().mean())
+
     def _on_end_epoch(self, meter: DetectionAPMeter):
         t0 = time.time()
-        ap_train = meter.eval().mean()
+        ap_train = self._mean_ap(meter)
         t_train = time.time() - t0
 
         t0 = time.time()
         ap_val = self.validate() if self.val_loader is not None else 0.0
         t_val = time.time() - t0
 
-        print(
-            "Epoch: {} | training mAP: {:.4f}, evaluation time: {:.2f}s |"
-            "validation mAP: {:.4f}, total time: {:.2f}s\n".format(
-                self.epoch, float(ap_train), t_train, float(ap_val), t_val
+        if is_main():
+            print(
+                "Epoch: {} | training mAP: {:.4f}, evaluation time: {:.2f}s |"
+                "validation mAP: {:.4f}, total time: {:.2f}s\n".format(
+                    self.epoch, ap_train, t_train, ap_val, t_val
+                )
             )
-        )
         self.epoch += 1
-        self.save()
+        if is_main():
+            self.save()
 
     def validate(self) -> float:
         """Verb-level mAP over ``val_loader``: detections associated with the
-        ground-truth pairs of the same verb at IoU 0.5."""
+        ground-truth pairs of the same verb at IoU 0.5, over every rank's
+        shard of it."""
         meter = DetectionAPMeter(self.num_classes, algorithm="11P")
         assoc = BoxPairAssociation(min_iou=0.5)
         for batch, indices in self.val_loader:
@@ -216,7 +270,7 @@ class LearningEngine:
                             res["scores"][det_sel],
                         )
                 meter.append(res["scores"], res["prediction"], labels)
-        return float(meter.eval().mean())
+        return self._mean_ap(meter)
 
     def save(self):
         os.makedirs(self.cache_dir, exist_ok=True)

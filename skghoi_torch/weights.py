@@ -19,6 +19,26 @@ same way, as ``to_state_dict({"params": grads})``: each gradient lands under
 the name of the port parameter it belongs to (frozen-BN terms land on the
 port's buffers, which take no gradient).
 
+:func:`to_state_dict` maps the variable tree of the JAX package's
+``skghoi_tpu.detect.frcnn.FasterRCNN`` the same way, onto
+:class:`skghoi_torch.detect.frcnn.FasterRCNN`, whose module names line up
+(``body``, ``fpn.lateral.{i}`` / ``fpn.output.{i}``,
+``rpn_head.{conv,cls_logits,bbox_pred}``, ``box_head.{fc6,fc7}``,
+``box_predictor.{cls_score,bbox_pred}``).  Both detectors flatten their
+pooled features in torchvision's channel-major order, so ``fc6`` needs no
+permutation.
+
+Torch-format checkpoints (no JAX in between):
+
+- :func:`load_torch_resnet50`: a torchvision-named ResNet-50 under a prefix
+  (``""``, ``backbone.body.``, ``backbone.``, ``detector_backbone.``) -> the
+  port's :class:`~skghoi_torch.models.resnet.ResNet50` ``state_dict``
+  (``skghoi_tpu.models.backbone.load_torch_resnet50``);
+- :func:`from_reference_state_dict`: the reference checkpoint's
+  ``model_state_dict`` (the key families of
+  ``skghoi_tpu.oracle.convert.to_flax_variables``) -> the port SCG's
+  ``state_dict``.
+
 :func:`kge_state_dict` maps the parameter tree of a ``skghoi_tpu.kge`` model
 (``{"params": {table: {"embedding": ...}}}``, as ``model.init`` or a decoded
 KGE checkpoint gives it) onto the ``state_dict`` of the port's model of the
@@ -35,6 +55,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from skghoi_torch import constants as C
 from skghoi_torch.kge.models import TransH
 from skghoi_torch.models.mbf import MultiBranchFusion
 
@@ -110,13 +131,108 @@ def _walk(prefix: str, p: Mapping, s: Optional[Mapping], sd: Dict[str, np.ndarra
 
 
 def to_state_dict(variables: Mapping) -> Dict[str, Tensor]:
-    """Flax ``{"params", "batch_stats"}`` of the SCG network -> the port's
-    ``state_dict`` (float32 CPU tensors)."""
+    """Flax ``{"params", "batch_stats"}`` of the SCG network or of the
+    Faster R-CNN -> the port's ``state_dict`` (float32 CPU tensors)."""
     params = unroll_resnet_layout(variables["params"])
     stats = unroll_resnet_layout(variables.get("batch_stats", {}))
     sd: Dict[str, np.ndarray] = {}
     _walk("", params, stats, sd)
     return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
+
+
+def cpu_float32(t) -> Tensor:
+    """A checkpoint value (tensor or array) as a float32 CPU tensor of its own."""
+    return torch.as_tensor(t).detach().to(device="cpu", dtype=torch.float32).clone()
+
+
+_RESNET_KEY = re.compile(r"(conv1|bn1|layer[1-4])\.")
+
+
+def load_torch_resnet50(state_dict: Mapping[str, Any], prefix: str = "") -> Dict[str, Tensor]:
+    """The torchvision-named ResNet-50 under ``prefix`` in ``state_dict`` ->
+    the port ``ResNet50``'s ``state_dict`` (float32 CPU tensors).
+
+    Only the stem's and the four stages' keys are taken (not the ``fc``
+    classifier, BN's ``num_batches_tracked`` counters or anything outside
+    the prefix); nothing is renamed, since the port's ResNet uses
+    torchvision's names."""
+    out = {}
+    for k, v in state_dict.items():
+        name = k[len(prefix):]
+        if (k.startswith(prefix) and _RESNET_KEY.match(name)
+                and not name.endswith("num_batches_tracked")):
+            out[name] = cpu_float32(v)
+    if "conv1.weight" not in out:
+        raise KeyError(f"no ResNet-50 under prefix {prefix!r} (no {prefix}conv1.weight)")
+    return out
+
+
+def _mbf_from_torch(sd: Mapping[str, Any], name: str) -> Dict[str, Tensor]:
+    """The reference's ``{name}.fc_{1,2,3}.{k}`` Linear branches, stacked
+    into the port's ``w1..b3`` (``[branch, in, out]`` weights)."""
+    out = {}
+    for i in (1, 2, 3):
+        out[f"w{i}"] = torch.stack([cpu_float32(sd[f"{name}.fc_{i}.{k}.weight"]).T
+                                    for k in range(C.MBF_CARDINALITY)])
+        out[f"b{i}"] = torch.stack([cpu_float32(sd[f"{name}.fc_{i}.{k}.bias"])
+                                    for k in range(C.MBF_CARDINALITY)])
+    return out
+
+
+# port graph-head Linear -> reference module (skghoi_tpu/oracle/convert.py:84-99)
+_REFERENCE_LINEARS = {
+    "box_head_fc2": "box_head.3", "adjacency": "adjacency", "norm_h": "norm_h",
+    "norm_o": "norm_o", "spatial_fc1": "spatial_head.0", "spatial_fc2": "spatial_head.2",
+    "spatial_fc3": "spatial_head.4", "fc_head": "fc_head.0", "fc_tail": "fc_tail.0",
+}
+
+
+def from_reference_state_dict(state_dict: Mapping[str, Any]) -> Dict[str, Tensor]:
+    """The reference checkpoint's ``model_state_dict`` (also what
+    ``skghoi_tpu.oracle.twin.SpatiallyConditionedGraphTwin`` saves) -> the
+    port SCG's ``state_dict`` (float32 CPU tensors).
+
+    - ``detector_backbone.*``: torchvision ResNet-50 names;
+    - the mmdet neck ``detector_neck.{lateral,fpn}_convs.{i}.conv``;
+    - ``interaction_head.box_pair_head.*``: ``box_head.1``, whose input is
+      the channel-major flatten of ``[C, 7, 7]`` pooled features, permuted to
+      the port's ``(7, 7, C)`` order; the MBF branches ``fc_{1,2,3}.{k}``
+      stacked; the other Linears and LayerNorms by name;
+    - ``box_pair_head.transh.*`` when present (a real reference checkpoint
+      has no TransH tables: load the result with ``strict=False`` and the
+      model keeps its own);
+    - the pair predictor and suppressor.
+    """
+    sd = state_dict
+    out = {f"detector.backbone.{k}": v
+           for k, v in load_torch_resnet50(sd, prefix="detector_backbone.").items()}
+    for i in range(4):
+        for port, ref in (("lateral", "lateral_convs"), ("output", "fpn_convs")):
+            for t in ("weight", "bias"):
+                out[f"detector.neck.{port}.{i}.{t}"] = cpu_float32(
+                    sd[f"detector_neck.{ref}.{i}.conv.{t}"])
+
+    gh = "interaction_head.box_pair_head"  # the same module path in both
+    w = cpu_float32(sd[f"{gh}.box_head.1.weight"])
+    c, p = C.FPN_CHANNELS, C.ROI_POOL_SIZE
+    out[f"{gh}.box_head_fc1.weight"] = w.reshape(-1, c, p, p).permute(0, 2, 3, 1).reshape(
+        w.shape[0], -1).contiguous()
+    out[f"{gh}.box_head_fc1.bias"] = cpu_float32(sd[f"{gh}.box_head.1.bias"])
+    for port, name in _REFERENCE_LINEARS.items():
+        for t in ("weight", "bias"):
+            out[f"{gh}.{port}.{t}"] = cpu_float32(sd[f"{gh}.{name}.{t}"])
+    for name in ("sub_to_obj", "obj_to_sub", "attention_head", "attention_head_g"):
+        for k, v in _mbf_from_torch(sd, f"{gh}.{name}").items():
+            out[f"{gh}.{name}.{k}"] = v
+    for table in ("ent_embeddings", "rel_embeddings", "norm_vector"):
+        key = f"{gh}.transh.{table}.weight"
+        if key in sd:
+            out[f"{gh}.transh.{table}.weight"] = cpu_float32(sd[key])
+    for name in ("box_pair_predictor", "box_pair_suppressor"):
+        for t in ("weight", "bias"):
+            key = f"interaction_head.{name}.{t}"
+            out[key] = cpu_float32(sd[key])
+    return out
 
 
 def kge_state_dict(params: Mapping) -> Dict[str, Tensor]:

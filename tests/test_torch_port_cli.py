@@ -7,8 +7,8 @@ JAX tools (the ``Epoch`` and ``Training complete.`` lines, a checkpoint,
 ``Loaded checkpoint``, the mAP line, 80 ``.mat`` files with ``all_boxes``);
 a ``--device-resize`` training run; the same flags and defaults as the JAX
 tools.  The KGE tools: ``train_kge --device cpu`` on a ring KG (the JAX
-tool's log lines and JSON line; ``--data-parallel`` refused, naming the DDP
-slice), its checkpoint round trip (``--load-checkpoint --epochs 0``
+tool's log lines and JSON line; ``--data-parallel`` run plainly trains as a
+group of one, to the same result), its checkpoint round trip (``--load-checkpoint --epochs 0``
 reprints the same metrics), ``pretrain_transh_hoi --synthetic --device cpu``
 then ``train_hicodet --synthetic --transh-init`` (the SCG's TransH tables
 equal the checkpoint's; one epoch trains), a TransH checkpoint that does not
@@ -159,9 +159,11 @@ def test_train_kge_cli(tmp_path, capsys):
     assert row["platform"] == "cpu" and row["model"] == "transe"
     assert (row["mrr"], row["hit10"]) == (res.mrr, res.hit10) and 0 < res.mrr <= 1
 
-    with pytest.raises(SystemExit):
-        train_kge.main(["--data", root, "--data-parallel"] + KGE_ARGS)
-    assert "DDP" in capsys.readouterr().err
+    # Run plainly, --data-parallel is a group of one: the same training.
+    dp = train_kge.main(["--data", root, "--epochs", "2", "--type-constrain", "--data-parallel"]
+                        + KGE_ARGS)
+    assert "on 1 ranks" in capsys.readouterr().out
+    assert tuple(dp) == tuple(res) and dp.raw == res.raw
 
 
 def test_train_kge_checkpoint_roundtrip(tmp_path, capsys):

@@ -1,8 +1,9 @@
 """Import and device rules of the port.
 
-``skghoi_torch`` and ``chip_smoke.py`` import nothing of JAX, flax or the JAX
-package (checked on the source, by AST).  Entry points run on CUDA unless
-the caller names the CPU: without a card they raise instead of falling back.
+``skghoi_torch`` and ``chip_smoke.py`` import nothing of JAX, flax, the JAX
+package or torchvision (checked on the source, by AST).  Entry points run on
+CUDA unless the caller names the CPU: without a card they raise instead of
+falling back, ``train_hicodet`` under torchrun's environment too.
 """
 
 import ast
@@ -18,11 +19,13 @@ from skghoi_torch.entry import build_model, entry, make_batch, verb_mask
 from skghoi_torch.models.backbone import DetectorBackbone
 from skghoi_torch.models.scg import SpatiallyConditionedGraph
 from skghoi_torch.ops.roi_align_cuda import roi_align_cuda
-from skghoi_torch.tools import (cache_results, pretrain_transh_hoi, test_hicodet, train_hicodet,
-                                train_kge)
+from skghoi_torch.detect.frcnn import FasterRCNN
+from skghoi_torch.tools import (cache_results, preprocess_detections, pretrain_transh_hoi,
+                                test_hicodet, train_hicodet, train_kge)
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "skghoi_tpu", "__graft_entry__", "bench")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "skghoi_tpu", "__graft_entry__", "bench",
+             "torchvision")
 SOURCES = sorted((ROOT / "skghoi_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 _NOWHERE = str(ROOT / "checkout_check" / "no-such-dir")  # the CLIs must raise before writing
 
@@ -50,7 +53,9 @@ def test_sources_scanned():
     assert {"roi_align_cuda.py", "scg.py", "weights.py", "chip_smoke.py", "factory.py",
             "engine.py", "checkpoint.py", "hoi_eval.py", "train_hicodet.py", "sampling.py",
             "trainer.py", "tester.py", "train_kge.py", "pretrain_transh_hoi.py",
-            "vcoco_eval.py", "vcoco_evaluation.py"} <= names
+            "vcoco_eval.py", "vcoco_evaluation.py", "distributed.py", "mesh.py", "frcnn.py",
+            "generate.py", "eval_detections.py", "preprocess_detections.py"} <= names
+    assert ROOT / "skghoi_torch" / "detect" / "__init__.py" in SOURCES
 
 
 @pytest.mark.parametrize("build", [
@@ -68,15 +73,32 @@ def test_sources_scanned():
                                 _NOWHERE]),
     lambda: train_kge.main(["--data", _NOWHERE, "--checkpoint", _NOWHERE + "/kge.pt"]),
     lambda: pretrain_transh_hoi.main(["--synthetic", "--output", _NOWHERE + "/transh.pt"]),
+    lambda: FasterRCNN(),
+    lambda: preprocess_detections.main(["--ckpt-path", _NOWHERE + "/frcnn.pt", "--data-root",
+                                        _NOWHERE, "--cache-dir", _NOWHERE]),
+    lambda: train_kge.main(["--data", _NOWHERE, "--data-parallel"]),
 ], ids=["resolve", "resolve-cuda", "scg", "backbone", "build_model", "make_batch", "verb_mask",
         "to_device", "train_hicodet", "test_hicodet", "cache_results", "train_kge",
-        "pretrain_transh_hoi"])
+        "pretrain_transh_hoi", "frcnn", "preprocess_detections", "train_kge-data-parallel"])
 def test_default_device_is_cuda(build):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the default is usable")
     with pytest.raises(RuntimeError, match="CUDA"):
         build()
     assert not os.path.exists(_NOWHERE)
+
+
+def test_torchrun_train_hicodet_needs_a_card(monkeypatch):
+    """Under torchrun's environment the process takes the card of its
+    ``LOCAL_RANK``, and raises without one before it joins a group."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default is usable")
+    for k, v in dict(RANK="0", WORLD_SIZE="2", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                     MASTER_PORT="1").items():
+        monkeypatch.setenv(k, v)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_hicodet.main(["--synthetic", "--synthetic-root", _NOWHERE])
+    assert not os.path.exists(_NOWHERE) and not torch.distributed.is_initialized()
 
 
 def test_kernel_wrapper_refuses_cpu():
