@@ -85,7 +85,7 @@ Phases, each reporting on its own lines; any failure exits non-zero:
    the same batches, in float64 (parameters within 1e-5 of each tensor's
    max) and in float32 (the same but in at most 2 rows a step of each table,
    where an L1 component rounds to opposite signs), then the raw and
-   filtered ranks of the first 256 test triples, under the same tables,
+   filtered ranks of the first 128 test triples, under the same tables,
    equal on both (a rank may differ only at a float tie within 2^-20 of the
    row's scale, by at most the tied entities; such ranks are counted);
    (b) ``tools.train_kge.main`` at ``--example transe_fb15k237`` and
@@ -135,9 +135,35 @@ Phases, each reporting on its own lines; any failure exits non-zero:
     real, P2-only proposals) and ``us_frcnn_spread_cold`` and
     ``share_of_bound_frcnn_spread`` (the same spread over P2..P5).
 
+13. The trainable stage-1 detectors at full width (80 HICO classes), float32
+    with TF32 off, seeded random weights, on synthetic HICO-DET resized into
+    the 832x1344 canvas: ``FPNDetector`` (256 channels, 9 anchors a cell on
+    P3-P5, 206 388 anchors an image) card against CPU on one image (logits
+    and deltas within ``S1_LOGIT_TOL`` of their largest, losses at rtol
+    ``S1_LOSS_RTOL``, every gradient within ``S1_GRAD_TOL`` of its largest
+    or within ``S1_GRAD_FLOAT64_TOL`` of a float64 CPU run,
+    ``decode_detections`` through ``selection_flips`` with a planted 0.5 px
+    offset refused), its train step (``train_detector``'s
+    ``build_fpn_step``, AdamW) at batch 4 timed with one traced step, and
+    ``decode_detections`` on one image; AdaMixer (100 queries, 6 stages,
+    content 256, 4 groups, 32/128 points, FFN 2048) trained the same way,
+    then the same step cut into forward, host Hungarian and backward+update;
+    card against CPU at init and with the trained weights (outputs within
+    ``S1_ADAMIXER_TOL``, the set loss on the CPU's assignments fed to both,
+    and in float64 the backbone's gradients at init and the pyramid's and
+    the decoder's after training within ``S1_GRAD64_TOL``); a seeded
+    random facebookresearch-layout DETR-R50 ``.pt`` through
+    ``preprocess_detections --detector detr`` over 8 landscape and 4
+    portrait images (images/s) and one image card against CPU
+    (``S1_DETR_TOL``); the AdaMixer chain ``train_detector --synthetic
+    --arch adamixer`` -> ``preprocess_detections --detector adamixer`` ->
+    one ``train_hicodet --synthetic`` epoch on those caches, whose RoIAlign
+    launches the kernels line reports as ``launches_adamixer_chain``.
+
 It prints the adjoint's, the train step's, the CLI path's, the KGE, the
-V-COCO/TransH, the data-parallel and the detection JSON lines, the kernels'
-JSON line, the card, then ``{"ok": true, "device": ...}`` last.  Without a
+V-COCO/TransH, the data-parallel, the detection and the detectors' JSON
+lines, the kernels' JSON line, the card, then ``{"ok": true, "device":
+...}`` last.  Without a
 CUDA device it exits with code 2 and prints no result.
 """
 
@@ -1060,7 +1086,7 @@ WN18RR = dict(name="WN18RR", ent=40943, rel=11, train=86835, valid=3034, test=31
 KGE_EPOCHS = 5        # phase 9b: train_kge epochs, enough to show the loss falling
 KGE_WN_EPOCHS = 2     # phase 9c
 KGE_PARITY_STEPS = 3  # phase 9a: trainer steps held card vs CPU
-KGE_PARITY_TEST = 256  # phase 9a: test triples ranked card vs CPU (the CPU ranking dominates)
+KGE_PARITY_TEST = 128  # phase 9a: test triples ranked card vs CPU (the CPU ranking dominates)
 KGE_TIMED_EPOCHS = 3  # per preset, each timed alone after one warm-up epoch
 TIE_TOL = 2.0 ** -20  # a rank may differ only where scores tie within this share of the row's max
 
@@ -1705,6 +1731,14 @@ def _moved(entries, dx=0.5):
     return entries[0] + np.array([dx, 0.0, dx, 0.0]), entries[1], entries[2]
 
 
+def write_coco_to_hico(root):
+    """COCO's 80 category ids in order onto 0..79: a stand-in for the
+    dataset's coco80tohico80.json, so labels land in HICO's range."""
+    coco = [i for i in range(1, 91) if i not in (12, 26, 29, 30, 45, 66, 68, 69, 71, 83)]
+    with open(os.path.join(root, "coco80tohico80.json"), "w") as f:
+        json.dump({str(c): h for h, c in enumerate(coco)}, f)
+
+
 def hold_detector_on_cpu(card, cpu, image, size):
     """The detector on the card against the same detector on the CPU, stage
     by stage: the RPN's pool and proposals (NMS at 0.7 with levels as
@@ -1875,11 +1909,7 @@ def phase_detect():
         make_synthetic_hicodet(root, "train2015", num_images=DET_TRAIN_IMAGES)  # train_hicodet's
         make_synthetic_hicodet(root, "test2015", num_images=DET_PORTRAIT_IMAGES,
                                image_size=(640, 480), seed=1)
-        # COCO's 80 category ids in order onto 0..79: a stand-in for the
-        # dataset's coco80tohico80.json, so labels land in HICO's range.
-        coco = [i for i in range(1, 91) if i not in (12, 26, 29, 30, 45, 66, 68, 69, 71, 83)]
-        with open(os.path.join(root, "coco80tohico80.json"), "w") as f:
-            json.dump({str(c): h for h, c in enumerate(coco)}, f)
+        write_coco_to_hico(root)
 
         cache = os.path.join(root, "detections")
         n_images, wall, per_image = 0, 0.0, []
@@ -1975,6 +2005,471 @@ def phase_detect():
                              launches=roi_align_cuda.launches)
         log(f"[detect] train_hicodet --synthetic --train-detection-dir <the detector's JSON> "
             f"--box-score-thresh 0: {engine.iteration} steps, losses {engine.step_losses}")
+    return out
+
+
+S1_BATCH = 4  # phase 13: the detectors' train batch at 832x1344
+S1_TIMED = 3  # phase 13: timed train steps of each detector, after one warm-up
+S1_LOGIT_TOL = 1e-5  # phase 13: FPN card vs CPU, relative to each output's largest
+S1_LOSS_RTOL = 1e-4  # phase 13: first-step losses card vs CPU
+S1_ADAMIXER_TOL = 1e-4  # phase 13: AdaMixer per-stage outputs card vs CPU, relative
+S1_DETR_TOL = 1e-4  # phase 13: DETR logits and boxes card vs CPU, relative
+S1_GRAD_TOL = 1e-3  # phase 13: card vs CPU gradients, relative to each tensor's largest
+# phase 13: an FPN gradient past S1_GRAD_TOL, card vs a float64 CPU run
+# (float32 holds one of them only to 4.7e-3 on the CPU)
+S1_GRAD_FLOAT64_TOL = 2e-2
+# phase 13: AdaMixer's gradients card vs CPU, both models in float64,
+# relative to each tensor's largest: its backbone's at init, from the CPU's
+# pyramid gradients on both sides, its pyramid's and decoder's after
+# training.  In float32 its trained weights make many gradients
+# ill-conditioned (card and CPU up to 2.3e-2 and 1.1e-2 from float64, the
+# worse side changing tensor by tensor and run to run); at init its
+# sampling points sit where bilinear sampling's derivative jumps (the
+# card's offset generator gradients 5-90% from float64); after training
+# one ResNet gradient was 1.5e-3 apart even in float64.
+S1_GRAD64_TOL = 1e-4
+
+
+def _rel(a, b):
+    """Largest |a - b| over the largest |b|."""
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+
+
+def _grads(model, loss):
+    """The gradients of ``loss`` by parameter name, on the host."""
+    model.zero_grad(set_to_none=True)
+    loss.backward()
+    return {n: p.grad.detach().cpu() for n, p in model.named_parameters() if p.grad is not None}
+
+
+def _float64_copy(model):
+    """A float64 copy of a CPU model (every layer computing in float64)."""
+    import copy
+
+    model = copy.deepcopy(model).double()
+    for m in model.modules():
+        if hasattr(m, "compute_dtype"):
+            m.compute_dtype = torch.float64
+    return model
+
+
+def _grad_rel(got, want):
+    """{name: largest |got - want| over the largest |want|}; the attention's
+    key bias, whose exact gradient is 0, at the key weight's scale."""
+    if got.keys() != want.keys():
+        raise AssertionError(f"gradients of {sorted(got.keys() ^ want.keys())} on one side only")
+    return {name: (got[name].double() - w.double()).abs().max().item() / max(
+        want[name.replace("key.bias", "key.weight")].abs().max().item(), 1e-30)
+        for name, w in want.items()}
+
+
+def grad_check(got, want, exact):
+    """The card's gradients ``got`` against the CPU's ``want`` (one step from
+    the same weights and batch): each within ``S1_GRAD_TOL`` of the CPU
+    tensor's largest, or else within ``S1_GRAD_FLOAT64_TOL`` of a float64
+    CPU run (``exact()``, called only then).  Returns (the largest relative
+    difference within ``S1_GRAD_TOL``, {name: [card, CPU] distances from
+    float64}, the failures)."""
+    rel = _grad_rel(got, want)
+    far = [name for name, r in rel.items() if r > S1_GRAD_TOL]
+    ref = exact() if far else {}
+    held = {name: [_rel(g[name], ref[name]) for g in (got, want)] for name in far}
+    bad = [name for name in far if held[name][0] > S1_GRAD_FLOAT64_TOL]
+    return max([r for r in rel.values() if r <= S1_GRAD_TOL], default=0.0), held, bad
+
+
+def _detector_batch(root, batch):
+    """The first ``batch`` images of synthetic HICO-DET at 832x1344 (the
+    loader's resize into the landscape canvas) with their detector GT, on
+    the card."""
+    from skghoi_torch.data.factory import DataFactory, HOILoader, to_device
+    from skghoi_torch.tools.train_detector import ground_truth
+
+    factory = DataFactory("hicodet", "train2015", root, os.path.join(root, "detections_train2015"))
+    hoi = to_device(next(iter(HOILoader(factory, batch, with_targets=True)))[0], "cuda")
+    if tuple(hoi.images.shape[1:3]) != CANVAS:
+        raise AssertionError(f"detector batch canvas {tuple(hoi.images.shape[1:3])}")
+    return hoi.images, ground_truth(hoi.targets)
+
+
+def _timed_steps(run, n):
+    """``run()`` once to warm up, then ``n`` times: host ms of each (to a
+    ``synchronize``), and one traced call's device busy ms and idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        traced = (time.perf_counter() - t0) * 1e3
+    device = device_events(prof.key_averages())
+    busy = sum(e.self_device_time_total for e in device) / 1e3
+    if not busy:
+        raise AssertionError("stage 1: the profiler saw no device time")
+    return dict(step_ms=ms, median_ms=sorted(ms)[n // 2], traced_ms=traced, device_busy_ms=busy,
+                device_ops=sum(e.count for e in device), idle_share=max(0.0, 1 - busy / traced))
+
+
+def stage1_fpn(images, gt):
+    """Phase 13a: FPNDetector card against CPU on one image (same seed): the
+    outputs, the losses and every gradient (``grad_check``),
+    ``decode_detections`` held by ``selection_flips``; then the train step at
+    batch ``S1_BATCH`` and the decode timed."""
+    from skghoi_torch.detect.detector import (FPNDetector, decode_candidates, decode_detections,
+                                              detector_loss, generate_anchors)
+    from skghoi_torch.tools.train_detector import adamw, build_fpn_step
+
+    out = {}
+    anchors = torch.from_numpy(generate_anchors(CANVAS))
+    card, cpu = FPNDetector(device="cuda"), FPNDetector(device="cpu")
+    one = [t[:1] for t in gt]
+    cpu_one = [t.cpu() for t in one]
+    got, want = card(images[:1]), cpu(images[:1].cpu())
+    out["logits_rel"], out["deltas_rel"] = _rel(got[0], want[0]), _rel(got[1], want[1])
+    lg = detector_loss(*got, anchors.cuda(), *one)
+    lw = detector_loss(*want, anchors, *cpu_one)
+    out["loss_rel"] = max(abs(lg[k].item() - lw[k].item()) / abs(lw[k].item()) for k in lw)
+
+    def exact():
+        f64 = _float64_copy(cpu)
+        return _grads(f64, sum(detector_loss(*f64(images[:1].cpu().double()), anchors,
+                                             *cpu_one).values()))
+
+    out["grad_rel"], out["grads_held_to_float64"], bad_grads = grad_check(
+        _grads(card, sum(lg.values())), _grads(cpu, sum(lw.values())), exact)
+    out["gradients"] = sum(1 for p in cpu.parameters() if p.grad is not None)
+    if bad_grads:
+        raise AssertionError(f"FPN card vs CPU gradients: {bad_grads}, {out}")
+    got, want = tuple(t.detach() for t in got), tuple(t.detach() for t in want)
+    with torch.no_grad():
+        thresh = float(DET_SCORE_THRESH)
+        dets = [decode_detections(*o, a, CANVAS, score_thresh=thresh)
+                for o, a in ((got, anchors.cuda()), (want, anchors))]
+        pools = [decode_candidates(*o, a, CANVAS) for o, a in ((got, anchors.cuda()), (want, anchors))]
+    sel = [_valid(d.boxes[0], d.scores[0], d.labels[0], d.valid[0]) for d in dets]
+    pool = [_all(p[0][0], p[1][0], p[2][0]) for p in pools]
+    out["flips"], out["pool_misses"], bad = selection_flips(sel[0], sel[1], 0.5, pool, False)
+    planted = [selection_flips(_moved(sel[0]), sel[1], 0.5, (_moved(pool[0]), pool[1]), False)[2],
+               selection_flips(_moved(sel[0]), sel[1], 0.5, pool, False)[2]]
+    out["detections"] = len(sel[0][1])
+    if not all(planted):
+        raise AssertionError("FPN card vs CPU: the check passes a box moved by 0.5 px on the card")
+    if (bad or out["logits_rel"] > S1_LOGIT_TOL or out["deltas_rel"] > S1_LOGIT_TOL
+            or out["loss_rel"] > S1_LOSS_RTOL or not out["detections"]):
+        raise AssertionError(f"FPN card vs CPU: {out}, unexplained flips {bad}")
+    del cpu
+
+    step = build_fpn_step(card, adamw(card, 1e-4, 1e-4))
+    losses = []
+    out.update(_timed_steps(lambda: losses.append(step(images, *gt)), S1_TIMED))
+    losses = [v.item() for step_losses in losses for v in step_losses.values()]
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"FPN train step losses {losses}")
+    out["img_per_s"] = S1_BATCH * 1e3 / out["median_ms"]
+    out["losses_first_last"] = [losses[:2], losses[-2:]]
+    with torch.no_grad():
+        logits, deltas = card(images[:1])
+        a = anchors.cuda()
+        decode = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            decode_detections(logits, deltas, a, CANVAS, score_thresh=float(DET_SCORE_THRESH))
+            torch.cuda.synchronize()
+            decode.append((time.perf_counter() - t0) * 1e3)
+    out.update(decode_ms=sorted(decode[1:])[1], decode_nms_steps=1000, anchors=len(anchors))
+    return out
+
+
+def _adamixer_grads(model, images, assign, gt, hw, upstream=None):
+    """One set-loss backward split at the pyramid -> (the loss, the
+    pyramid's gradients (the gathers' scatter-add backward), every
+    parameter's gradient: the decoder's from the loss, the backbone's
+    (ResNet + FPN) from ``upstream``, another run's pyramid gradients, or
+    else this run's own), on the host."""
+    from skghoi_torch.detect.adamixer import set_loss
+
+    pyramid = model.backbone((images.float() - model.mean) / model.std)
+    out = model.decoder(pyramid, tuple(images.shape[1:3]))
+    loss = set_loss(out, assign, gt[0].to(out.boxes.dtype), *gt[1:], hw)["set_loss"]
+    dec = list(model.decoder.named_parameters())
+    g = torch.autograd.grad(loss, [*pyramid, *(p for _, p in dec)], retain_graph=True)
+    up = g[:len(pyramid)] if upstream is None else [
+        u.to(p.device, p.dtype) for u, p in zip(upstream, pyramid)]
+    bb = list(model.backbone.named_parameters())
+    bg = torch.autograd.grad(pyramid, [p for _, p in bb], grad_outputs=up)
+    grads = {f"decoder.{n}": x.detach().cpu() for (n, _), x in zip(dec, g[len(pyramid):])}
+    grads.update({f"backbone.{n}": x.detach().cpu() for (n, _), x in zip(bb, bg)})
+    return loss.item(), [x.detach().cpu() for x in g[:len(pyramid)]], grads
+
+
+def stage1_adamixer(images, gt):
+    """Phase 13b: AdaMixer card against CPU on one image (the CPU model takes
+    the card's weights; assignments computed once on the CPU and fed to
+    both) at init and after the train steps: per-stage logits and boxes and
+    the set loss in float32, then both models in float64 for one backward
+    split at the pyramid (see ``S1_GRAD64_TOL``): at init every backbone
+    gradient from the CPU's pyramid gradients; after training the set loss,
+    the pyramid's gradients (the gathers' scatter-add backward, with
+    atomics on the card) and every decoder gradient.  Between the two, the
+    train step at batch ``S1_BATCH``, timed whole and cut into its parts
+    (forward, host Hungarian, set loss + backward + AdamW).  At init every
+    stage keeps the whole-image box (``fc_reg`` starts at zero), so the
+    outputs are held again after training."""
+    from skghoi_torch.detect.adamixer import AdaMixerDetector, compute_assignments, set_loss
+    from skghoi_torch.tools.train_detector import (_apply, _first_occurrence_mask, adamw,
+                                                   build_adamixer_step)
+
+    out = {}
+    boxes, labels, valid = gt
+    valid = torch.from_numpy(_first_occurrence_mask(boxes.cpu().numpy(), labels.cpu().numpy(),
+                                                    valid.cpu().numpy())).cuda()
+    hw = (float(CANVAS[0]), float(CANVAS[1]))
+    card, cpu = AdaMixerDetector(device="cuda"), AdaMixerDetector(device="cpu")
+    image, one = images[:1], (boxes[:1], labels[:1], valid[:1])
+    cpu_image, cpu_one = image.cpu(), [t.cpu() for t in one]
+
+    def card_vs_cpu(part):
+        """The card's weights on both -> float32 and float64 differences of
+        the ``part`` (``backbone.`` or ``decoder.``) gradients."""
+        cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()}, strict=True)
+        with torch.no_grad():
+            got, want = card(image), cpu(cpu_image)
+            assign = torch.from_numpy(compute_assignments(want, *cpu_one, hw))
+            lg, lw = (set_loss(o, assign, *t, hw)["set_loss"].item()
+                      for o, t in ((got, one), (want, cpu_one)))
+        res = dict(logits_rel=[_rel(g, w) for g, w in zip(got.cls_logits, want.cls_logits)],
+                   boxes_rel=[_rel(g, w) for g, w in zip(got.boxes, want.boxes)],
+                   boxes_moved_px=(want.boxes[-1] - want.boxes[0]).abs().max().item(),
+                   set_loss_rel=abs(lg - lw) / abs(lw))
+        lw, pyr_w, grads_w = _adamixer_grads(_float64_copy(cpu), cpu_image, assign, cpu_one, hw)
+        lg, pyr_g, grads_g = _adamixer_grads(_float64_copy(card), image, assign, one, hw, pyr_w)
+        rel = {n: r for n, r in _grad_rel(grads_g, grads_w).items() if n.startswith(part)}
+        res.update(set_loss64_rel=abs(lg - lw) / abs(lw), gradients=len(rel),
+                   grad_rel=max(rel.values()), grad_rel_at=max(rel, key=rel.get),
+                   pyramid_grad_rel=[_rel(g, w) for g, w in zip(pyr_g, pyr_w)])
+        if (max(res["logits_rel"] + res["boxes_rel"]) > S1_ADAMIXER_TOL
+                or res["set_loss_rel"] > S1_LOSS_RTOL or res["grad_rel"] > S1_GRAD64_TOL):
+            raise AssertionError(f"AdaMixer card vs CPU ({part}): {res}")
+        return res
+
+    out["init"] = card_vs_cpu("backbone.")
+    optimizer = adamw(card, 1e-4, 1e-4)
+    step = build_adamixer_step(card, optimizer)
+    losses = []
+    out.update(_timed_steps(lambda: losses.append(
+        step(images, boxes, labels, valid)["set_loss"].item()), S1_TIMED))
+    parts = []
+    for _ in range(S1_TIMED):  # the same step, cut at each part
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        optimizer.zero_grad(set_to_none=False)
+        o = card(images)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        a = compute_assignments(o, boxes, labels, valid, hw)
+        t2 = time.perf_counter()
+        losses.append(_apply(card, optimizer, set_loss(o, torch.from_numpy(a), boxes, labels,
+                                                       valid, hw))["set_loss"].item())
+        t3 = time.perf_counter()
+        parts.append(dict(forward_ms=(t1 - t0) * 1e3, hungarian_ms=(t2 - t1) * 1e3,
+                          backward_update_ms=(t3 - t2) * 1e3))
+    for k in parts[0]:
+        out[k] = sorted(p[k] for p in parts)[S1_TIMED // 2]
+    out["hungarian_share"] = out["hungarian_ms"] / sum(out[k] for k in parts[0])
+    out["img_per_s"] = S1_BATCH * 1e3 / out["median_ms"]
+    out["losses"] = losses
+    out["hungarian_problems"] = 6 * S1_BATCH
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"AdaMixer train step losses {losses}")
+    out.update(card_vs_cpu("decoder."))
+    out["gt_boxes"] = int(valid[:1].sum())
+    if (out["init"]["gradients"] + out["gradients"] != len(list(cpu.parameters()))
+            or max(out["pyramid_grad_rel"]) > S1_GRAD64_TOL or out["set_loss64_rel"] > S1_GRAD64_TOL
+            or not out["gt_boxes"]):
+        raise AssertionError(f"AdaMixer card vs CPU after training: {out}")
+    return out
+
+
+def stage1_detr(root):
+    """Phase 13c: a seeded random facebookresearch-layout DETR-R50 ``.pt``
+    through ``preprocess_detections --detector detr`` over 8 landscape and 4
+    portrait images; one image card against CPU."""
+    from skghoi_torch.detect.detr import DETR, load_torch_detr, random_state_dict
+    from skghoi_torch.tools import preprocess_detections
+    from skghoi_torch.tools.preprocess_detections import detector_input
+    from skghoi_torch.data.hicodet import HICODet
+
+    out = {}
+    sd = random_state_dict(0)
+    ckpt = os.path.join(root, "detr_r50.pt")
+    torch.save(sd, ckpt)
+    cache = os.path.join(root, "detr_detections")
+    wall, n_images = 0.0, 0
+    for part, n in (("train2015", DET_TRAIN_IMAGES), ("test2015", DET_PORTRAIT_IMAGES)):
+        t0 = time.perf_counter()
+        run_cli(preprocess_detections.main, ["--data-root", root, "--partition", part,
+                                             "--ckpt-path", ckpt, "--detector", "detr",
+                                             "--cache-dir", cache, "--score-thresh",
+                                             DET_SCORE_THRESH])
+        wall += time.perf_counter() - t0
+        n_images += n
+        files = sorted(os.listdir(os.path.join(cache, part)))
+        if len(files) != n:
+            raise AssertionError(f"preprocess_detections --detector detr {part}: {len(files)} files")
+        for name in files:
+            with open(os.path.join(cache, part, name)) as f:
+                det = json.load(f)
+            if not det["boxes"] or not all(0 <= l < 80 for l in det["labels"]):
+                raise AssertionError(f"DETR cache {part}/{name}: {len(det['boxes'])} boxes")
+    out.update(images=n_images, cli_s=wall, images_per_s=n_images / wall,
+               ms_per_image=wall * 1e3 / n_images)
+
+    ds = HICODet(os.path.join(root, "hico_20160224_det/images/train2015"),
+                 os.path.join(root, "instances_train2015.json"))
+    padded, _, _ = detector_input(np.asarray(ds[0][0], np.float32) / 255.0)
+    image = torch.from_numpy(padded)[None]
+    card, cpu = DETR(device="cuda"), DETR(device="cpu")
+    card.load_state_dict(load_torch_detr(sd), strict=True)
+    cpu.load_state_dict(load_torch_detr(sd), strict=True)
+    with torch.no_grad():
+        got, want = card.raw(image.cuda()), cpu.raw(image)
+        ms = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            card.raw(image.cuda())
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+    out.update(logits_rel=_rel(got[0], want[0]), boxes_rel=_rel(got[1], want[1]),
+               model_ms=sorted(ms[1:])[1])
+    if out["logits_rel"] > S1_DETR_TOL or out["boxes_rel"] > S1_DETR_TOL:
+        raise AssertionError(f"DETR card vs CPU: {out}")
+    return out
+
+
+def stage1_chain(root):
+    """Phase 13d: the AdaMixer two-stage chain (``tests/test_cli_pipeline.py``):
+    ``train_detector --synthetic --arch adamixer`` -> ``preprocess_detections
+    --detector adamixer`` on its last ``.pt`` -> ``train_hicodet --synthetic``
+    for one epoch on those caches, counting the kernel's launches there."""
+    from skghoi_torch.ops.roi_align_cuda import roi_align_cuda
+    from skghoi_torch.tools import preprocess_detections, train_detector, train_hicodet
+
+    synth, det_ck = os.path.join(root, "chain"), os.path.join(root, "chain_ck")
+    t0 = time.perf_counter()
+    result, text = run_cli(train_detector.main, ["--synthetic", "--synthetic-root", synth,
+                                                 "--arch", "adamixer", "--cache-dir", det_ck])
+    train_s = time.perf_counter() - t0
+    losses = [step["set_loss"] for step in result["losses"]]
+    if ("Detector training complete." not in text or not losses
+            or not all(map(math.isfinite, losses)) or len(result["checkpoints"]) != 2):
+        raise AssertionError(f"train_detector --arch adamixer: losses {losses}")
+    t0 = time.perf_counter()
+    cache, _ = run_cli(preprocess_detections.main, [
+        "--partition", "train2015", "--data-root", synth, "--cache-dir",
+        os.path.join(root, "chain_dets"), "--ckpt-path", result["checkpoints"][-1], "--detector",
+        "adamixer", "--score-thresh", DET_SCORE_THRESH, "--min-size", "64", "--max-size", "96",
+        "--canvas", "64", "96"])
+    cache_s = time.perf_counter() - t0
+    files = sorted(os.listdir(cache))
+    if len(files) != DET_TRAIN_IMAGES:
+        raise AssertionError(f"preprocess_detections --detector adamixer: {len(files)} files")
+    roi_align_cuda.launches = 0
+    engine, text = run_cli(train_hicodet.main, [
+        "--synthetic", "--synthetic-root", synth, "--train-detection-dir", cache,
+        "--box-score-thresh", "0", "--batch-size", "4", "--num-workers", "0", "--cache-dir",
+        os.path.join(root, "chain_hoi")])
+    launches = roi_align_cuda.launches
+    hoi_losses = [v for step in engine.step_losses for v in step.values()]
+    if ("Training complete." not in text or not launches or launches != engine.iteration
+            or not all(map(math.isfinite, hoi_losses))):
+        raise AssertionError(f"train_hicodet on the AdaMixer caches: {engine.iteration} steps, "
+                             f"{launches} launches, losses {hoi_losses}")
+    return dict(detector_losses=losses, detector_train_s=train_s, cache_s=cache_s,
+                hoi_steps=engine.iteration, hoi_losses=engine.step_losses, launches=launches)
+
+
+def phase_stage1():
+    """Phase 13: the trainable stage-1 detectors at full width: FPNDetector
+    and AdaMixer (card vs CPU, the train step at batch 4, 832x1344), DETR-R50
+    through ``preprocess_detections --detector detr``, and the AdaMixer
+    two-stage chain into ``train_hicodet``."""
+    import tempfile
+
+    from skghoi_torch.data.synthetic import make_synthetic_hicodet
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="skghoi_s1_") as root:
+        make_synthetic_hicodet(root, "train2015", num_images=DET_TRAIN_IMAGES)
+        make_synthetic_hicodet(root, "test2015", num_images=DET_PORTRAIT_IMAGES,
+                               image_size=(640, 480), seed=1)
+        write_coco_to_hico(root)
+        images, gt = _detector_batch(root, S1_BATCH)
+        t0 = time.perf_counter()
+        f = out["fpn"] = stage1_fpn(images, gt)
+        f["phase_s"] = time.perf_counter() - t0
+        log(f"[stage1] FPNDetector card vs CPU (one 832x1344 image, float32): logits "
+            f"{f['logits_rel']:.3e}, deltas {f['deltas_rel']:.3e} (rel, tol {S1_LOGIT_TOL:g}); "
+            f"losses {f['loss_rel']:.3e} (rtol {S1_LOSS_RTOL:g}); {f['gradients']} gradients, "
+            f"largest {f['grad_rel']:.3e} of the tensor's largest (tol {S1_GRAD_TOL:g}), held to "
+            f"float64 [card, CPU]: {f['grads_held_to_float64']}; decode: {f['pool_misses']} pool "
+            f"misses, {f['flips']} flips of {f['detections']} detections, each a tie; a box moved "
+            f"0.5 px on the card is refused")
+        log(f"[stage1] FPNDetector train step, batch {S1_BATCH}, 832x1344 ({f['anchors']} anchors "
+            f"an image): {[round(x, 3) for x in f['step_ms']]} ms, median {f['median_ms']:.3f} ms, "
+            f"{f['img_per_s']:.3f} img/s; traced step {f['traced_ms']:.3f} ms, device busy "
+            f"{f['device_busy_ms']:.3f} ms in {f['device_ops']} ops: idle {f['idle_share']:.1%}; "
+            f"decode_detections one image {f['decode_ms']:.3f} ms ({f['decode_nms_steps']} NMS "
+            f"steps)")
+        t0 = time.perf_counter()
+        a = out["adamixer"] = stage1_adamixer(images, gt)
+        a["phase_s"] = time.perf_counter() - t0
+        log(f"[stage1] AdaMixer train step, batch {S1_BATCH}, 832x1344: "
+            f"{[round(x, 3) for x in a['step_ms']]} ms, median {a['median_ms']:.3f} ms; cut into "
+            f"parts (synchronised): forward {a['forward_ms']:.3f} + host Hungarian ({a['hungarian_problems']} problems) "
+            f"{a['hungarian_ms']:.3f} ({a['hungarian_share']:.1%}) + backward and update "
+            f"{a['backward_update_ms']:.3f}; {a['img_per_s']:.3f} img/s; traced step device busy "
+            f"{a['device_busy_ms']:.3f} ms in {a['device_ops']} ops: idle {a['idle_share']:.1%}")
+        i = a["init"]
+        log(f"[stage1] AdaMixer card vs CPU at init (one image): logits rel "
+            f"{max(i['logits_rel']):.2e}, boxes {max(i['boxes_rel']):.2e}, set loss "
+            f"{i['set_loss_rel']:.2e}; in float64 from the CPU's pyramid gradients "
+            f"{i['gradients']} backbone gradients, largest {i['grad_rel']:.3e} "
+            f"({i['grad_rel_at']}; tol {S1_GRAD64_TOL:g})")
+        log(f"[stage1] AdaMixer card vs CPU after its {len(a['losses'])} train steps (one image, "
+            f"100 queries, 6 stages): logits rel {[f'{x:.2e}' for x in a['logits_rel']]}, boxes "
+            f"rel {[f'{x:.2e}' for x in a['boxes_rel']]} (tol {S1_ADAMIXER_TOL:g}; the last "
+            f"stage's boxes {a['boxes_moved_px']:.3f} px from the first's); set loss on the CPU's "
+            f"assignments {a['set_loss_rel']:.3e} (rtol {S1_LOSS_RTOL:g}), {a['gt_boxes']} GT; in "
+            f"float64: set loss {a['set_loss64_rel']:.3e}, pyramid gradients "
+            f"{[f'{x:.2e}' for x in a['pyramid_grad_rel']]}, {a['gradients']} decoder gradients, "
+            f"largest {a['grad_rel']:.3e} ({a['grad_rel_at']}; tol {S1_GRAD64_TOL:g})")
+        t0 = time.perf_counter()
+        d = out["detr"] = stage1_detr(root)
+        d["phase_s"] = time.perf_counter() - t0
+        log(f"[stage1] preprocess_detections --detector detr (random DETR-R50 .pt, "
+            f"{d['images']} images, float32): {d['cli_s']:.3f} s, {d['images_per_s']:.3f} "
+            f"images/s, {d['ms_per_image']:.3f} ms an image with the tool's resize and JSON; the "
+            f"model alone {d['model_ms']:.3f} ms an image; card vs CPU logits {d['logits_rel']:.3e}, "
+            f"boxes {d['boxes_rel']:.3e} (rel, tol {S1_DETR_TOL:g})")
+        t0 = time.perf_counter()
+        c = out["chain"] = stage1_chain(root)
+        c["phase_s"] = time.perf_counter() - t0
+        log(f"[stage1] chain: train_detector --synthetic --arch adamixer "
+            f"({len(c['detector_losses'])} steps, set_loss {c['detector_losses'][0]:.4f} -> "
+            f"{c['detector_losses'][-1]:.4f}, {c['detector_train_s']:.2f} s) -> preprocess_detections "
+            f"--detector adamixer ({c['cache_s']:.2f} s) -> train_hicodet --synthetic "
+            f"({c['hoi_steps']} steps, roi_align launches {c['launches']})")
     return out
 
 
@@ -2086,6 +2581,8 @@ def main() -> int:
     spread = landscape["kernel_spread"]
     kernel["us_frcnn_spread_cold"] = spread["cold_ms"] * 1e3
     kernel["share_of_bound_frcnn_spread"] = spread["bound_ms"] / spread["cold_ms"]
+    stage1 = phase_stage1()
+    kernel["launches_adamixer_chain"] = stage1["chain"]["launches"]
 
     log(f"[card] {card}")
     print(json.dumps({"library_ops": [adjoint]}))
@@ -2095,6 +2592,7 @@ def main() -> int:
     print(json.dumps({"vcoco_transh": hoi}))
     print(json.dumps({"ddp": ddp}))
     print(json.dumps({"detect": detect}))
+    print(json.dumps({"detectors": stage1}))
     print(json.dumps({"kernels": [kernel]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

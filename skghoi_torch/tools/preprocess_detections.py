@@ -1,7 +1,8 @@
-"""Generate stage-1 detections with a torchvision Faster R-CNN checkpoint.
+"""Generate stage-1 detections with a Faster R-CNN, DETR or AdaMixer checkpoint.
 
     python -m skghoi_torch.tools.preprocess_detections \
-        --data-root data/hicodet --partition train2015 --ckpt-path frcnn.pt [--cpu]
+        --data-root data/hicodet --partition train2015 --ckpt-path frcnn.pt \
+        [--detector frcnn|detr|adamixer] [--cpu]
 
 Mirrors ``skghoi_tpu.tools.preprocess_detections`` (the reference's
 ``hicodet/detections/preprocessing.py``): runs a ``fasterrcnn_resnet50_fpn``
@@ -14,10 +15,18 @@ when the data root has it).  The detector is
 RoIAlign kernel on the card.  It runs on ``cuda`` unless ``--cpu`` is given,
 and raises without a card.
 
+``--detector detr``: a facebookresearch/detr ``state_dict`` (detr-r50, 91
+COCO classes) through :class:`skghoi_torch.detect.detr.DETR`: per-query
+max-class scores, no NMS, boxes scaled by the padded canvas (the extent DETR
+saw), COCO ids remapped as for Faster R-CNN.  ``--detector adamixer``: the
+``.pt`` that ``train_detector --arch adamixer`` saves (``{"config",
+"state_dict"}``: the decoder's geometry travels with the weights) or a bare
+port ``state_dict`` (80 classes, the module defaults), through
+:class:`skghoi_torch.detect.adamixer.AdaMixerDetector`: the last stage's
+per-query argmax class and sigmoid score, HICO ids as they are.
+
 Each image is resized on the host (``data.transforms``, as the JAX tool
 does), pasted top-left into the canvas of its orientation and run alone.
-``--detector detr`` and ``--detector adamixer`` are refused: those
-detectors come with a later slice of the port.
 """
 
 from __future__ import annotations
@@ -38,10 +47,11 @@ from skghoi_torch.device import resolve_device
 
 
 def detector_input(arr: np.ndarray, min_size: int = C.IMAGE_MIN_SIZE,
-                   max_size: int = C.IMAGE_MAX_SIZE, canvas=None):
+                   max_size: int = C.IMAGE_MAX_SIZE, canvas=None, normalise: bool = True):
     """``arr`` (``[H, W, 3]`` in [0, 1]) resized by torchvision's rule,
-    normalised and pasted top-left into the canvas of its orientation (zeros
-    elsewhere).  Returns (``[Hc, Wc, 3]`` float32, (h, w) inside it, scale)."""
+    normalised (unless ``normalise`` is false) and pasted top-left into the
+    canvas of its orientation (zeros elsewhere).  Returns (``[Hc, Wc, 3]``
+    float32, (h, w) inside it, scale)."""
     h, w = arr.shape[:2]
     scale = resize_scale(h, w, min_size, max_size)
     nh, nw = resized_size(h, w, scale)
@@ -49,8 +59,10 @@ def detector_input(arr: np.ndarray, min_size: int = C.IMAGE_MIN_SIZE,
     nh, nw = min(nh, cv[0]), min(nw, cv[1])
     resized = bilinear_resize(arr.astype(np.float32), nh, nw)
     padded = np.zeros((cv[0], cv[1], 3), np.float32)
-    padded[:nh, :nw] = (resized - np.asarray(C.IMAGE_MEAN, np.float32)) / np.asarray(
-        C.IMAGE_STD, np.float32)
+    if normalise:
+        resized = (resized - np.asarray(C.IMAGE_MEAN, np.float32)) / np.asarray(
+            C.IMAGE_STD, np.float32)
+    padded[:nh, :nw] = resized
     return padded, (nh, nw), scale
 
 
@@ -79,6 +91,71 @@ def build_detector_fn(state_dict, score_thresh: float, nms_thresh: float, num_de
     return detector
 
 
+def build_detr_detector_fn(state_dict, score_thresh: float, num_classes: int = 91,
+                           min_size: int = C.IMAGE_MIN_SIZE, max_size: int = C.IMAGE_MAX_SIZE,
+                           canvas=None, device=None):
+    """DETR flavour of :func:`build_detector_fn` (``main_detr.py`` path):
+    ``state_dict`` is the port model's (:func:`~skghoi_torch.detect.detr.load_torch_detr`
+    of a facebookresearch one); per-query max-class scores, no NMS."""
+    from skghoi_torch.detect.detr import DETR
+
+    device = resolve_device(device)
+    model = DETR(num_classes=num_classes, device=device)
+    model.load_state_dict(state_dict, strict=True)
+    model.eval()
+
+    def detector(arr: np.ndarray):
+        padded, _, scale = detector_input(arr, min_size, max_size, canvas)
+        # DETR normalises boxes to the padded canvas it saw: scale by the
+        # canvas, then back to original-image coordinates.
+        det = model(torch.from_numpy(padded)[None].to(device),
+                    torch.tensor([[float(padded.shape[0]), float(padded.shape[1])]], device=device))
+        keep = (det.scores[0] >= score_thresh).cpu().numpy()
+        return (det.boxes[0].cpu().numpy()[keep] / scale, det.labels[0].cpu().numpy()[keep],
+                det.scores[0].cpu().numpy()[keep])
+
+    return detector
+
+
+def build_adamixer_detector_fn(state_dict, score_thresh: float, num_classes: int = 80,
+                               min_size: int = C.IMAGE_MIN_SIZE,
+                               max_size: int = C.IMAGE_MAX_SIZE, canvas=None, device=None,
+                               **model_overrides):
+    """AdaMixer flavour (the reference's stage-1 generation pipeline,
+    ``hicodet/detections/adamixer_preprocessing.py:43-58``): the last stage's
+    per-query (argmax class, sigmoid of the largest logit); a query detector
+    emits a fixed set, so no NMS.  The model normalises its input itself."""
+    from skghoi_torch.detect.adamixer import AdaMixerDetector
+
+    device = resolve_device(device)
+    model = AdaMixerDetector(num_classes=num_classes, device=device, **model_overrides)
+    model.load_state_dict(state_dict, strict=True)
+    model.eval()
+
+    @torch.no_grad()
+    def detector(arr: np.ndarray):
+        padded, _, scale = detector_input(arr, min_size, max_size, canvas, normalise=False)
+        out = model(torch.from_numpy(padded)[None].to(device))
+        logits = out.cls_logits[-1, 0].cpu().numpy()  # the last stage
+        boxes = out.boxes[-1, 0].cpu().numpy() / scale
+        scores = 1.0 / (1.0 + np.exp(-logits.max(axis=1)))
+        keep = scores >= score_thresh
+        return boxes[keep], logits.argmax(axis=1)[keep], scores[keep]
+
+    return detector
+
+
+def load_adamixer_checkpoint(path: str):
+    """``(state_dict, num_classes, geometry overrides)`` of an AdaMixer
+    ``.pt``: ``{"config", "state_dict"}`` as ``train_detector`` saves it, or
+    a bare ``state_dict`` (80 classes, the module defaults)."""
+    blob = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(blob, dict) and "config" in blob:
+        cfg = {k: int(v) for k, v in blob["config"].items()}
+        return blob["state_dict"], cfg.pop("num_classes"), cfg
+    return blob, 80, {}
+
+
 def load_checkpoint_state_dict(path: str):
     """A checkpoint's ``state_dict``: the file itself, or its
     ``model_state_dict`` entry."""
@@ -98,8 +175,8 @@ def build_argparser():
     parser.add_argument("--nms-thresh", type=float, default=0.5)
     parser.add_argument("--num-detections-per-image", type=int, default=100)
     parser.add_argument("--detector", choices=["frcnn", "detr", "adamixer"], default="frcnn",
-                        help="checkpoint format: torchvision Faster R-CNN (detr and adamixer "
-                             "come with a later slice of the port)")
+                        help="checkpoint format: torchvision Faster R-CNN, facebookresearch/detr "
+                             "DETR-R50, or the .pt of train_detector --arch adamixer")
     parser.add_argument("--min-size", type=int, default=C.IMAGE_MIN_SIZE,
                         help="resize envelope (tests use small values)")
     parser.add_argument("--max-size", type=int, default=C.IMAGE_MAX_SIZE)
@@ -111,12 +188,9 @@ def build_argparser():
 
 def main(argv=None):
     """Returns the cache directory it wrote."""
-    parser = build_argparser()
-    args = parser.parse_args(argv)
-    if args.detector != "frcnn":
-        parser.error(f"--detector {args.detector}: the port runs torchvision Faster R-CNN "
-                     "checkpoints only; DETR and AdaMixer come with a later slice of the port")
+    args = build_argparser().parse_args(argv)
     device = resolve_device("cpu" if args.cpu else None)
+    canvas = tuple(args.canvas) if args.canvas else None
 
     dataset = HICODet(
         root=os.path.join(args.data_root, f"hico_20160224_det/images/{args.partition}"),
@@ -128,10 +202,22 @@ def main(argv=None):
         with open(mapping_path) as f:
             coco2hico = json.load(f)
 
-    detector = build_detector_fn(
-        load_torch_fasterrcnn(load_checkpoint_state_dict(args.ckpt_path)), args.score_thresh,
-        args.nms_thresh, args.num_detections_per_image, min_size=args.min_size,
-        max_size=args.max_size, canvas=tuple(args.canvas) if args.canvas else None, device=device)
+    envelope = dict(min_size=args.min_size, max_size=args.max_size, canvas=canvas, device=device)
+    if args.detector == "adamixer":
+        state, num_classes, overrides = load_adamixer_checkpoint(args.ckpt_path)
+        detector = build_adamixer_detector_fn(state, args.score_thresh, num_classes=num_classes,
+                                              **envelope, **overrides)
+        coco2hico = None  # trained on HICO ids directly
+    elif args.detector == "detr":
+        from skghoi_torch.detect.detr import load_torch_detr
+
+        detector = build_detr_detector_fn(
+            load_torch_detr(load_checkpoint_state_dict(args.ckpt_path)), args.score_thresh,
+            **envelope)
+    else:
+        detector = build_detector_fn(
+            load_torch_fasterrcnn(load_checkpoint_state_dict(args.ckpt_path)), args.score_thresh,
+            args.nms_thresh, args.num_detections_per_image, **envelope)
     cache_dir = os.path.join(args.cache_dir, args.partition)
     generate_model_detections(detector, dataset, cache_dir, score_thresh=args.score_thresh,
                               label_map=coco2hico)

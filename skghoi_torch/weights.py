@@ -26,7 +26,11 @@ port's buffers, which take no gradient).
 ``rpn_head.{conv,cls_logits,bbox_pred}``, ``box_head.{fc6,fc7}``,
 ``box_predictor.{cls_score,bbox_pred}``).  Both detectors flatten their
 pooled features in torchvision's channel-major order, so ``fc6`` needs no
-permutation.
+permutation.  It maps ``skghoi_tpu.detect.detector.FPNDetector``'s tree onto
+:class:`skghoi_torch.detect.detector.FPNDetector` too (``backbone``,
+``cls{i}``, ``box{i}``, ``cls_out``, ``box_out``).  The AdaMixer and DETR
+trees have shapes the walk does not take: :func:`adamixer_state_dict` and
+:func:`detr_state_dict` convert those.
 
 Torch-format checkpoints (no JAX in between):
 
@@ -131,8 +135,9 @@ def _walk(prefix: str, p: Mapping, s: Optional[Mapping], sd: Dict[str, np.ndarra
 
 
 def to_state_dict(variables: Mapping) -> Dict[str, Tensor]:
-    """Flax ``{"params", "batch_stats"}`` of the SCG network or of the
-    Faster R-CNN -> the port's ``state_dict`` (float32 CPU tensors)."""
+    """Flax ``{"params", "batch_stats"}`` of the SCG network, the Faster
+    R-CNN or the FPN detector -> the port's ``state_dict`` (float32 CPU
+    tensors)."""
     params = unroll_resnet_layout(variables["params"])
     stats = unroll_resnet_layout(variables.get("batch_stats", {}))
     sd: Dict[str, np.ndarray] = {}
@@ -240,6 +245,90 @@ def kge_state_dict(params: Mapping) -> Dict[str, Tensor]:
     model's ``state_dict`` (float32 CPU tensors)."""
     return {f"{name}.weight": torch.from_numpy(np.array(t["embedding"], dtype=np.float32))
             for name, t in params["params"].items()}
+
+
+# --- the JAX stage-1 detectors -------------------------------------------------
+#
+# ``_walk`` takes a module whose values are not all submodules for a leaf, and
+# ``_leaf_module`` transposes 2-D kernels: three shapes of the detector trees
+# need their own rules, so they are taken out of the tree before the walk and
+# converted here.
+
+def _to_tensors(sd: Mapping[str, Any]) -> Dict[str, Tensor]:
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
+
+
+def _flax_attention(p: Mapping) -> Dict[str, np.ndarray]:
+    """flax ``MultiHeadDotProductAttention``: ``query/key/value`` kernels
+    ``[D, H, D/H]`` with ``[H, D/H]`` biases, ``out`` kernel ``[H, D/H, D]``
+    -> ``Linear(D, D)`` weights ``[out, in]``."""
+    out = {}
+    for name in ("query", "key", "value"):
+        k = np.asarray(p[name]["kernel"])
+        out[f"{name}.weight"] = k.reshape(k.shape[0], -1).T
+        out[f"{name}.bias"] = np.asarray(p[name]["bias"]).reshape(-1)
+    k = np.asarray(p["out"]["kernel"])
+    out["out.weight"] = k.reshape(-1, k.shape[-1]).T
+    out["out.bias"] = np.asarray(p["out"]["bias"])
+    return out
+
+
+def _packed_attention(p: Mapping) -> Dict[str, np.ndarray]:
+    """``skghoi_tpu.detect.detr.PackedMHA``: torch's layout already (its
+    ``out_proj_kernel`` is ``[out, in]``)."""
+    return {"in_proj_weight": np.asarray(p["in_proj_weight"]),
+            "in_proj_bias": np.asarray(p["in_proj_bias"]),
+            "out_proj.weight": np.asarray(p["out_proj_kernel"]),
+            "out_proj.bias": np.asarray(p["out_proj_bias"])}
+
+
+def adamixer_state_dict(variables: Mapping) -> Dict[str, Tensor]:
+    """Flax variables of ``skghoi_tpu.detect.adamixer.AdaMixerDetector`` ->
+    the port's :class:`~skghoi_torch.detect.adamixer.AdaMixerDetector`
+    ``state_dict``.  Taken out of the walk: the decoder's raw
+    ``init_content_features`` (an array beside the ``stage{s}`` modules) and
+    each stage's ``self_attn`` (3-D ``DenseGeneral`` kernels, reshaped)."""
+    params = dict(variables["params"])
+    decoder = dict(params["decoder"])
+    extra = {"decoder.init_content_features": np.asarray(decoder.pop("init_content_features"))}
+    for name in [n for n in decoder if n.startswith("stage")]:
+        stage = dict(decoder[name])
+        for k, v in _flax_attention(stage.pop("self_attn")).items():
+            extra[f"decoder.{name}.self_attn.{k}"] = v
+        decoder[name] = stage
+    params["decoder"] = decoder
+    sd = to_state_dict({"params": params, "batch_stats": variables.get("batch_stats", {})})
+    return {**sd, **_to_tensors(extra)}
+
+
+_DETR_LISTS = ((re.compile(r"enc(\d+)\."), r"encoder.\1."), (re.compile(r"dec(\d+)\."), r"decoder.\1."),
+               (re.compile(r"bbox(\d+)\."), r"bbox_mlp.\1."))
+
+
+def detr_state_dict(variables: Mapping) -> Dict[str, Tensor]:
+    """Flax variables of ``skghoi_tpu.detect.detr.DETR`` -> the port's
+    :class:`~skghoi_torch.detect.detr.DETR` ``state_dict``: ``enc{i}`` /
+    ``dec{i}`` / ``bbox{i}`` become ``encoder.{i}`` / ``decoder.{i}`` /
+    ``bbox_mlp.{i}``.  Taken out of the walk: the raw ``query_embed`` (an
+    array beside the layers) and every ``PackedMHA``, whose parameters the
+    walk would copy under their flax names."""
+    params = dict(variables["params"])
+    extra = {"query_embed": np.asarray(params.pop("query_embed"))}
+    for name in [n for n in params if re.fullmatch(r"(enc|dec)\d+", n)]:
+        layer = dict(params[name])
+        for attn in ("self_attn", "multihead_attn"):
+            if attn in layer:
+                for k, v in _packed_attention(layer.pop(attn)).items():
+                    extra[f"{name}.{attn}.{k}"] = v
+        params[name] = layer
+    sd = {**to_state_dict({"params": params, "batch_stats": variables.get("batch_stats", {})}),
+          **_to_tensors(extra)}
+    out = {}
+    for k, v in sd.items():
+        for pat, rep in _DETR_LISTS:
+            k = pat.sub(rep, k, count=1) if pat.match(k) else k
+        out[k] = v
+    return out
 
 
 @torch.no_grad()
