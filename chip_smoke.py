@@ -160,10 +160,35 @@ Phases, each reporting on its own lines; any failure exits non-zero:
     one ``train_hicodet --synthetic`` epoch on those caches, whose RoIAlign
     launches the kernels line reports as ``launches_adamixer_chain``.
 
+14. The user and measurement tools on the card, on what phases 8, 9 and 12
+    left (``keep``; run alone, :func:`tool_inputs` makes stand-ins): (a)
+    ``extract_roi_features`` over phase 8's 16 training images (480x640 in
+    the 832x1344 canvas, batch 4, float32): one ``.npz`` an image, one
+    kernel launch a batch (``launches_extract``), the first batch against a
+    CPU run with the same seeded backbone (boxes, labels, scores and
+    ``n_h`` equal, features within ``TOOLS_FEATURE_TOL`` of the largest),
+    and the kernel against its plain version on the tool's boxes; (b)
+    ``demo`` with phase 8's ``ckpt_02.pt`` on a portrait test image
+    (1344x832): one launch (``launches_demo``), pairs, verbs and objects
+    equal to a CPU run and scores within 1e-4; (c) ``visualise_detections``
+    on phase 12's Faster R-CNN caches, the kept boxes equal to ``--cpu``'s;
+    (d) ``learning_curve.parse_log`` on phase 8's ``train_hicodet`` log;
+    (e) ``perf_report`` (bf16, batch 8, 832x1344: img/s, TFLOP a step, MFU,
+    ``first_call_seconds``, one launch a forward: ``launches_perf_report``)
+    beside phases 4 and 7; (f) ``stage_profile`` (every part, batch 8), the
+    kernel against its plain version on its head inputs; (g) ``bench_io
+    --train`` over phase 8's images, beside phase 8's train img/s; (h) the
+    host tools once (``hicodet_split``, ``navigator`` on a scripted stdin,
+    ``generate_html_page``, ``kge_results_table`` on phase 9's rows,
+    ``kge_relation_stats`` on its WN18RR-size KG, ``visualise_and_cache`` on
+    the ``.mat`` files ``cache_results --dataset hicodet`` writes with
+    ``ckpt_02.pt``, ``text_label``).  Without matplotlib the overlays and
+    plots are left out and ``"matplotlib": false`` is printed.
+
 It prints the adjoint's, the train step's, the CLI path's, the KGE, the
-V-COCO/TransH, the data-parallel, the detection and the detectors' JSON
-lines, the kernels' JSON line, the card, then ``{"ok": true, "device":
-...}`` last.  Without a
+V-COCO/TransH, the data-parallel, the detection, the detectors' and the
+tools' JSON lines, the kernels' JSON line, the card, then ``{"ok": true,
+"device": ...}`` last.  Without a
 CUDA device it exits with code 2 and prints no result.
 """
 
@@ -557,7 +582,7 @@ def phase_main(requests: int, profile_dir):
 
     if profile_dir:
         profile_forward(model, batch, ovm, profile_dir, sorted(times)[len(times) // 2])
-    return launches
+    return launches, BATCH * requests / total
 
 
 def _map_grads(fn, maps, cot):
@@ -812,6 +837,42 @@ def run_cli(main, argv):
     return result, tee.text()
 
 
+# What phases 8, 9 and 12 leave for phase 14 (name -> path), kept in
+# KEEP_DIR, which ``main`` makes and removes; with no KEEP_DIR (a phase run
+# alone) nothing is kept and phase 14 makes its own inputs.
+KEEP_DIR = None
+ARTEFACTS: dict = {}
+
+
+def keep(name: str, *sources, move: bool = False) -> None:
+    """Copy (or move) files and directories into ``KEEP_DIR/name`` (one
+    source: its copy is ``name`` itself) and record the path."""
+    import shutil
+
+    if KEEP_DIR is None:
+        return
+    dst = os.path.join(KEEP_DIR, name)
+    for src in sources:
+        target = dst if len(sources) == 1 else os.path.join(dst, os.path.basename(src))
+        os.makedirs(os.path.dirname(target), exist_ok=True)
+        if move:
+            shutil.move(src, target)
+        elif os.path.isdir(src):
+            shutil.copytree(src, target)
+        else:
+            shutil.copy(src, target)
+    ARTEFACTS[name] = dst
+
+
+def keep_text(name: str, text: str) -> None:
+    """Append ``text`` to ``KEEP_DIR/name``."""
+    if KEEP_DIR is None:
+        return
+    ARTEFACTS[name] = os.path.join(KEEP_DIR, name)
+    with open(ARTEFACTS[name], "a") as f:
+        f.write(text)
+
+
 def check_device_preprocess(root):
     """``device_resize_canvas`` on the card against the same function on the
     CPU (atol 1e-6) and against the host ``prepare_image`` on the synthetic
@@ -937,6 +998,7 @@ def phase_cli():
         t0 = time.perf_counter()
         engine, text = run_cli(train_hicodet.main, train_argv)
         train_s = time.perf_counter() - t0
+        keep_text("train_hicodet.log", text)
         launches, adjoints = roi_align_cuda.launches, RoIAlignFunction.backward_calls
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
@@ -1067,6 +1129,10 @@ def phase_cli():
         log(f"[cli] --device-resize epoch: {steps_per_epoch} steps, losses finite, roi_align "
             f"launches {roi_align_cuda.launches}, adjoints {RoIAlignFunction.backward_calls}; "
             f"steps after the first {[round(g * 1e3, 3) for g in dr_gaps]} ms with the loader")
+        keep("hico", *[os.path.join(root, n) for n in (
+            "hico_20160224_det", "instances_train2015.json", "instances_test2015.json",
+            "detections_train2015", "detections_test2015")])
+        keep("ckpt_02.pt", os.path.join(ckpts, "ckpt_02.pt"), move=True)
 
     return dict(dtype="float32", tf32=False, canvas=list(CANVAS), batch=BATCH,
                 train_img_per_s=train_img_s, train_step_ms=[g * 1e3 for g in gaps],
@@ -1332,6 +1398,7 @@ def run_train_kge(argv):
         res, text = run_cli(train_kge.main, argv + ["--json-out", path])
         with open(path) as f:
             row = json.loads(f.read())
+    keep_text("kge_rows.jsonl", json.dumps(row) + "\n")
     epochs = [float(x) for x in re.findall(r"^Epoch \d+ \| loss: (\S+) \|", text, re.M)]
     return res, row, epochs
 
@@ -1384,6 +1451,7 @@ def phase_kge():
                                        if "type_constrained" in entry else ""))
             results["train_kge"][example] = entry
             results["epochs"][example] = time_kge_epochs(root, example)
+        keep("wn18rr", wn)
     return results
 
 
@@ -2003,6 +2071,9 @@ def phase_detect():
                                  f"losses {losses}, {roi_align_cuda.launches} launches")
         out["stage2"] = dict(steps=engine.iteration, losses=engine.step_losses,
                              launches=roi_align_cuda.launches)
+        keep("detect", *[os.path.join(root, n) for n in (
+            "hico_20160224_det", "instances_train2015.json", "instances_test2015.json",
+            "detections")])
         log(f"[detect] train_hicodet --synthetic --train-detection-dir <the detector's JSON> "
             f"--box-score-thresh 0: {engine.iteration} steps, losses {engine.step_losses}")
     return out
@@ -2473,6 +2544,378 @@ def phase_stage1():
     return out
 
 
+TOOLS_EXTRACT_BATCH = 4  # phase 14: extract_roi_features' default batch
+TOOLS_FEATURE_TOL = 1e-4  # phase 14: card vs CPU, relative to the largest |value|
+# phase 14: the forwards and train steps of one perf_report call: the first
+# call, the FLOP count, one warm-up and the timed ones
+PERF_REPORT_FORWARDS = 1 + 1 + 1 + 10
+PERF_REPORT_STEPS = 1 + 1 + 1 + 5
+NAVIGATOR_SCRIPT = "help\nclasses ride\ncounts\nobjects\nverbs\nimage 0\nbogus\nquit\n"
+
+
+def tool_inputs(work):
+    """What phase 14 reads: phase 8's synthetic HICO-DET, ``ckpt_02.pt`` and
+    ``train_hicodet`` log, phase 9's ``train_kge`` rows and WN18RR-size KG,
+    phase 12's Faster R-CNN JSON caches.  Run alone, the phase makes stand-ins
+    in ``work``: the same data, a two-epoch ``train_hicodet``, one
+    ``train_kge`` epoch, and the synthetic detection caches."""
+    from skghoi_torch.data.synthetic import make_synthetic_hicodet
+    from skghoi_torch.tools import train_hicodet
+
+    got = dict(ARTEFACTS)
+    if "hico" not in got:
+        root = os.path.join(work, "hico")
+        make_synthetic_hicodet(root, "train2015", num_images=CLI_TRAIN_IMAGES, image_size=(480, 640))
+        make_synthetic_hicodet(root, "test2015", num_images=CLI_TEST_IMAGES, image_size=(640, 480))
+        _, text = run_cli(train_hicodet.main, [
+            "--data-root", root, "--train-detection-dir", os.path.join(root, "detections_train2015"),
+            "--val-detection-dir", os.path.join(root, "detections_test2015"), "--num-epochs", "2",
+            "--batch-size", str(BATCH), "--cache-dir", os.path.join(work, "ck")])
+        with open(os.path.join(work, "train_hicodet.log"), "w") as f:
+            f.write(text)
+        got.update(hico=root, **{"ckpt_02.pt": os.path.join(work, "ck", "ckpt_02.pt"),
+                                 "train_hicodet.log": os.path.join(work, "train_hicodet.log")})
+    if "wn18rr" not in got:
+        got["wn18rr"] = write_synthetic_kg(os.path.join(work, "wn18rr"), WN18RR, seed=1)
+        got["kge_rows.jsonl"] = os.path.join(work, "kge_rows.jsonl")
+        _, row, _ = run_train_kge(["--data", got["wn18rr"], "--example", "transe_wn18rr",
+                                   "--epochs", "1"])
+        with open(got["kge_rows.jsonl"], "w") as f:
+            f.write(json.dumps(row) + "\n")
+    if "detect" not in got:
+        got["detect"] = got["hico"]
+        got["detect_cache"] = os.path.join(got["hico"], "detections_train2015")
+    else:
+        got["detect_cache"] = os.path.join(got["detect"], "detections", "train2015")
+    return got
+
+
+def tools_extract(root, work):
+    """(a) ``extract_roi_features`` at its default geometry, card vs CPU on
+    the first batch, and the kernel against its plain version on the tool's
+    own pooled boxes."""
+    from skghoi_torch.data.factory import DataFactory, HOILoader, to_device
+    from skghoi_torch.models.interaction_head import filter_detections
+    from skghoi_torch.ops.roi_align import multiscale_roi_align
+    from skghoi_torch.ops.roi_align_cuda import roi_align_cuda
+    from skghoi_torch.tools import extract_roi_features
+
+    card_dir, cpu_dir = os.path.join(work, "roi_card"), os.path.join(work, "roi_cpu")
+    det_dir = os.path.join(root, "detections_train2015")
+    roi_align_cuda.launches = 0
+    t0 = time.perf_counter()
+    count, _ = run_cli(extract_roi_features.main, [
+        "--data-root", root, "--detection-dir", det_dir, "--partition", "train2015",
+        "--output-dir", card_dir])
+    extract_s = time.perf_counter() - t0
+    launches = roi_align_cuda.launches
+    batches = math.ceil(CLI_TRAIN_IMAGES / TOOLS_EXTRACT_BATCH)
+    names = sorted(os.listdir(card_dir))
+    if count != CLI_TRAIN_IMAGES or len(names) != count or launches != batches:
+        raise AssertionError(f"extract_roi_features: {count} images, {len(names)} files, "
+                             f"{launches} launches for {batches} batches")
+
+    factory = DataFactory("hicodet", "train2015", root, det_dir)
+    loader = HOILoader(factory, TOOLS_EXTRACT_BATCH, shuffle=False, with_targets=False)
+    extract_roi_features.extract_features(extract_roi_features.seeded_backbone("cpu"), loader,
+                                          cpu_dir, max_batches=1)
+    worst = 0.0
+    for name in sorted(os.listdir(cpu_dir)):
+        got, want = np.load(os.path.join(card_dir, name)), np.load(os.path.join(cpu_dir, name))
+        for key in ("boxes", "labels", "scores", "n_h"):
+            if not np.array_equal(got[key], want[key]):
+                raise AssertionError(f"extract_roi_features {name}: {key} differ card vs CPU")
+        scale = max(np.abs(want["features"]).max(), 1e-30)
+        err = np.abs(got["features"] - want["features"]).max() / scale
+        worst = max(worst, float(err))
+        if got["features"].shape != want["features"].shape or err > TOOLS_FEATURE_TOL:
+            raise AssertionError(f"extract_roi_features {name}: features {err:.3e} of the largest")
+
+    batch, _ = next(iter(loader))
+    b = to_device(batch, "cuda")
+    with torch.no_grad():
+        feats = extract_roi_features.seeded_backbone("cuda")(b.images)
+        boxes = filter_detections(b.det_boxes, b.det_labels, b.det_scores, b.det_valid).boxes
+        boxes = boxes.contiguous()
+        err = (roi_align_cuda(feats, boxes) - multiscale_roi_align(feats, boxes)).abs().max().item()
+    if not err <= FP32_TOL * (1 + max(f.abs().max().item() for f in feats)):
+        raise AssertionError(f"roi_align on extract_roi_features' boxes: {err:.3e}")
+    log(f"[tools] extract_roi_features, float32, {CLI_TRAIN_IMAGES} images 480x640 -> "
+        f"{CANVAS[0]}x{CANVAS[1]}, batch {TOOLS_EXTRACT_BATCH}: {extract_s:.3f} s, {len(names)} "
+        f".npz files, roi_align launches {launches} ({batches} batches); first batch card vs CPU: "
+        f"boxes, labels, scores, n_h equal, features {worst:.3e} of the largest (tolerance "
+        f"{TOOLS_FEATURE_TOL:g}); kernel vs plain on the tool's boxes {tuple(boxes.shape)}: "
+        f"{err:.3e}")
+    return dict(images=count, seconds=extract_s, launches=launches, batches=batches,
+                feature_rel_err=worst, kernel_err=err)
+
+
+def tools_demo(root, ckpt, work, have_mpl):
+    """(b) ``demo`` with phase 8's ``ckpt_02.pt`` on one portrait test image
+    (1344x832), card vs CPU."""
+    from skghoi_torch.data.factory import DataFactory
+    from skghoi_torch.ops.roi_align_cuda import roi_align_cuda
+    from skghoi_torch.tools import demo
+
+    det_dir = os.path.join(root, "detections_test2015")
+    png = os.path.join(work, "demo_overlay.png")
+    argv = ["--data-root", root, "--detection-dir", det_dir, "--partition", "test2015",
+            "--index", "0", "--model-path", ckpt, "--output", png]
+    factory = DataFactory("hicodet", "test2015", root, det_dir)
+
+    def run(device):
+        if have_mpl:
+            return demo.main(argv + (["--cpu"] if device == "cpu" else []))
+        return demo.run(factory, 0, ckpt, torch.device(device))
+
+    roi_align_cuda.launches = 0
+    t0 = time.perf_counter()
+    card, _ = run_cli(lambda _: run("cuda"), None)
+    demo_s = time.perf_counter() - t0
+    launches = roi_align_cuda.launches
+    cpu, _ = run_cli(lambda _: run("cpu"), None)
+    got, want = card["res"], cpu["res"]
+    for key in ("pair_index", "prediction", "object"):
+        if not np.array_equal(got[key], want[key]):
+            raise AssertionError(f"demo: {key} differ card vs CPU")
+    err = float(np.abs(got["scores"] - want["scores"]).max()) if len(want["scores"]) else 0.0
+    if launches != 1 or err > 1e-4 or not card["pairs"] or (have_mpl and not os.path.exists(png)):
+        raise AssertionError(f"demo: {launches} launches, scores {err:.3e} apart, "
+                             f"{len(card['pairs'])} pairs")
+    log(f"[tools] demo --model-path ckpt_02.pt, test image 0 ({factory.canvas_portrait[0]}x"
+        f"{factory.canvas_portrait[1]} canvas), float32: {demo_s:.3f} s, {len(card['pairs'])} pairs, "
+        f"roi_align launches {launches}; card vs CPU: pairs, verbs, objects equal, scores "
+        f"{err:.3e} apart (tolerance 1e-4); overlay {'written' if have_mpl else 'not drawn'}")
+    return dict(seconds=demo_s, pairs=len(card["pairs"]), launches=launches, score_err=err,
+                overlay=have_mpl and os.path.exists(png))
+
+
+def tools_visualise_detections(data_root, cache, work):
+    """(c) ``visualise_detections`` on the detector's JSON caches, card vs CPU."""
+    from skghoi_torch.tools import visualise_detections
+
+    kept = {}
+    for device in ("cuda", "cpu"):
+        jpg = os.path.join(work, f"detections_{device}.jpg")
+        kept[device], _ = run_cli(visualise_detections.main, [
+            "--data-root", data_root, "--detection-root", cache, "--partition", "train2015",
+            "--image-idx", "0", "--box-score-thresh", DET_SCORE_THRESH, "--out-file", jpg]
+            + (["--cpu"] if device == "cpu" else []))
+        if not os.path.getsize(jpg):
+            raise AssertionError(f"visualise_detections wrote no JPEG on {device}")
+    if not len(kept["cuda"][0]) or not all(np.array_equal(a, b)
+                                           for a, b in zip(kept["cuda"], kept["cpu"])):
+        raise AssertionError(f"visualise_detections: kept boxes differ card vs CPU "
+                             f"({len(kept['cuda'][0])} vs {len(kept['cpu'][0])})")
+    log(f"[tools] visualise_detections --box-score-thresh {DET_SCORE_THRESH} on the detector's "
+        f"JSON: {len(kept['cuda'][0])} boxes kept after NMS on the card, equal to --cpu; JPEG written")
+    return dict(kept=len(kept["cuda"][0]))
+
+
+def tools_learning_curve(log_path, work, have_mpl):
+    """(d) ``learning_curve`` on phase 8's ``train_hicodet`` stdout."""
+    import re
+
+    from skghoi_torch.tools import learning_curve
+
+    epochs, train, val = learning_curve.parse_log(log_path)
+    with open(log_path) as f:
+        lines = re.findall(r"^Epoch: (\d+) \| training mAP: (\S+), .*validation mAP: (\S+), ",
+                           f.read(), re.M)
+    want = ([int(e) for e, _, _ in lines], [float(t) for _, t, _ in lines],
+            [float(v) for _, _, v in lines])
+    if (epochs, train, val) != want or epochs != [0, 1]:
+        raise AssertionError(f"learning_curve: parsed {(epochs, train, val)}, Epoch lines {want}")
+    if have_mpl:
+        run_cli(learning_curve.main, [log_path, "--output", os.path.join(work, "curve.png")])
+    log(f"[tools] learning_curve on train_hicodet's log: epochs {epochs}, train mAP {train}, "
+        f"val mAP {val}, as the Epoch lines say")
+    return dict(epochs=epochs, train_map=train, val_map=val)
+
+
+def tools_perf_report(serving_img_s, train_img_s):
+    """(e) ``perf_report``: bf16, batch 8, 832x1344."""
+    from skghoi_torch.ops.roi_align_cuda import RoIAlignFunction, roi_align_cuda
+    from skghoi_torch.tools import perf_report
+
+    roi_align_cuda.launches = 0
+    RoIAlignFunction.backward_calls = 0
+    rep, _ = run_cli(lambda _: perf_report.report(BATCH, CANVAS), None)
+    launches, adjoints = roi_align_cuda.launches, RoIAlignFunction.backward_calls
+    if launches != PERF_REPORT_FORWARDS + PERF_REPORT_STEPS or adjoints != PERF_REPORT_STEPS:
+        raise AssertionError(f"perf_report: {launches} launches, {adjoints} adjoints")
+    for part in ("inference", "train"):
+        sec = rep[part]
+        if not (sec["seconds_per_step"] > 0 and sec["tflops_per_step"] > 0):
+            raise AssertionError(f"perf_report {part}: {sec}")
+    log(f"[tools] perf_report bf16 {CANVAS[0]}x{CANVAS[1]} batch {BATCH} on "
+        f"{rep['device_kind']} (peak {rep['peak_bf16_flops']}): inference "
+        f"{rep['inference']['images_per_sec']:.2f} img/s, {rep['inference']['tflops_per_step']:.4f} "
+        f"TFLOP a step, MFU {rep['inference']['mfu']}, first call "
+        f"{rep['inference']['first_call_seconds']} s; train {rep['train']['images_per_sec']:.2f} "
+        f"img/s, {rep['train']['tflops_per_step']:.4f} TFLOP a step, MFU {rep['train']['mfu']}, "
+        f"first call {rep['train']['first_call_seconds']} s; beside phase 4's {serving_img_s:.2f} "
+        f"serving img/s and phase 7's {train_img_s:.2f} train img/s; roi_align launches "
+        f"{launches}, adjoints {adjoints}")
+    return rep, launches
+
+
+def tools_stage_profile(eager_ms):
+    """(f) ``stage_profile --part all``, and the kernel against its plain
+    version on the head part's inputs."""
+    from skghoi_torch.ops.roi_align import multiscale_roi_align
+    from skghoi_torch.ops.roi_align_cuda import roi_align_cuda
+    from skghoi_torch.tools import stage_profile
+
+    prof, _ = run_cli(lambda _: stage_profile.profile(BATCH, CANVAS), None)
+    feats, boxes = stage_profile.head_inputs(BATCH, CANVAS, torch.device("cuda"))
+    with torch.no_grad():
+        err = (roi_align_cuda(feats, boxes).float()
+               - multiscale_roi_align(feats, boxes).float()).abs().max().item()
+    if err > 1e-2:
+        raise AssertionError(f"roi_align on stage_profile's head inputs: {err:.3e}")
+    stages = ("backbone_fpn", "stem", "layer1", "layer2", "layer3", "layer4")
+    if not all(prof[s][k] > 0 for s in stages for k in prof[s]) or prof["n_params"] <= 0:
+        raise AssertionError(f"stage_profile: {prof}")
+    log(f"[tools] stage_profile bf16 {CANVAS[0]}x{CANVAS[1]} batch {BATCH}: " + ", ".join(
+        f"{s} fwd {prof[s]['fwd_ms']:.3f} ms / fwd+bwd {prof[s]['fwd_bwd_ms']:.3f} ms" for s in stages)
+        + f"; AdamW {prof['adamw_plain_ms']:.3f} ms plain, {prof['adamw_guarded_ms']:.3f} ms "
+        f"guarded over {prof['n_params_updated']} of {prof['n_params']} parameters; roi_align "
+        f"forward {prof['roi_fwd_ms']:.4f} ms (beside phase 2's eager call {eager_ms:.4f} ms), "
+        f"forward+adjoint {prof['roi_fwd_bwd_ms']:.4f} ms; kernel vs plain on the head inputs "
+        f"{tuple(boxes.shape)} bf16: {err:.3e} (1e-2)")
+    return prof
+
+
+def tools_bench_io(root, cli_train_img_s):
+    """(g) ``bench_io --train`` on phase 8's 16 landscape images."""
+    from skghoi_torch.ops.roi_align_cuda import RoIAlignFunction, roi_align_cuda
+    from skghoi_torch.tools import bench_io
+
+    roi_align_cuda.launches = 0
+    RoIAlignFunction.backward_calls = 0
+    res, _ = run_cli(bench_io.main, ["--num-images", str(CLI_TRAIN_IMAGES), "--epochs", "2",
+                                     "--batch-size", str(BATCH), "--train", "--root", root])
+    steps = 2 * math.ceil(CLI_TRAIN_IMAGES / BATCH)
+    if (res["loader"]["num_images"] != CLI_TRAIN_IMAGES or res["loader"]["platform"] != "cuda"
+            or roi_align_cuda.launches != steps or RoIAlignFunction.backward_calls != steps):
+        raise AssertionError(f"bench_io: {res}, {roi_align_cuda.launches} launches")
+    log(f"[tools] bench_io 480x640 -> {CANVAS[0]}x{CANVAS[1]}, batch {BATCH}, 2 epochs: loader "
+        f"{res['loader']['imgs_per_s']} img/s (epochs {res['loader']['epoch_imgs_per_s']}); "
+        f"--train {res['train_e2e']['imgs_per_s']} img/s with the loader (epochs "
+        f"{res['train_e2e']['epoch_imgs_per_s']}), beside phase 8's {cli_train_img_s:.2f} CLI-path "
+        f"train img/s; roi_align launches {roi_align_cuda.launches} in {steps} steps")
+    return res
+
+
+def tools_host(inputs, ckpt, work, have_mpl):
+    """(h) The host tools once: ``hicodet_split``, ``navigator`` (scripted
+    stdin), ``generate_html_page``, ``kge_results_table`` (phase 9's rows),
+    ``kge_relation_stats`` (phase 9's WN18RR-size KG), ``visualise_and_cache``
+    (``.mat`` files that ``cache_results --dataset hicodet`` writes with
+    ``ckpt_02.pt``) and ``text_label``."""
+    import io
+
+    import scipy.io as sio
+
+    from skghoi_torch.data import hico_meta, text_label
+    from skghoi_torch.tools import (cache_results, generate_html_page, hicodet_split,
+                                    kge_relation_stats, kge_results_table, navigator,
+                                    visualise_and_cache)
+
+    root = inputs["hico"]
+    out = {}
+    split = os.path.join(work, "split.json")
+    run_cli(hicodet_split.main, ["--data-root", root, "--output", split])
+    with open(split) as f:
+        pools = json.load(f)
+    out["split"] = [len(pools["train"]), len(pools["val"])]
+
+    stdin, sys.stdin = sys.stdin, io.StringIO(NAVIGATOR_SCRIPT)
+    try:
+        _, text = run_cli(navigator.main, ["--data-root", root])
+    finally:
+        sys.stdin = stdin
+    out["navigator_lines"] = len(text.splitlines())
+
+    _, text = run_cli(generate_html_page.main, [
+        os.path.join(root, "hico_20160224_det/images/train2015"), "--output",
+        os.path.join(work, "gallery.html"), "--per-page", "8"])
+    out["html_pages"] = len([f for f in os.listdir(work) if f.startswith("gallery")])
+
+    _, table = run_cli(kge_results_table.main, [inputs["kge_rows.jsonl"]])
+    out["kge_table_rows"] = len(table.splitlines()) - 2
+
+    stats = os.path.join(work, "nn")
+    run_cli(kge_relation_stats.main, ["--data", inputs["wn18rr"], "--output-dir", stats])
+    counts = {}
+    for name in sorted(os.listdir(stats)):
+        with open(os.path.join(stats, name)) as f:
+            counts[name] = int(f.readline())
+    out["relation_stats"] = counts
+
+    mats = os.path.join(work, "mat")
+    run_cli(cache_results.main, [
+        "--dataset", "hicodet", "--data-root", root, "--partition", "test2015",
+        "--detection-dir", os.path.join(root, "detections_test2015"), "--model-path", ckpt,
+        "--cache-dir", mats, "--batch-size", str(BATCH)])
+    found = next((o, r) for o in range(80)
+                 for r in range(sio.loadmat(os.path.join(mats, f"detections_{o:02d}.mat"))
+                                ["all_boxes"].shape[0])
+                 if len(visualise_and_cache.ranked_scores(mats, o, r)[1]))
+    _, scores = visualise_and_cache.ranked_scores(mats, *found)
+    if have_mpl:
+        run_cli(visualise_and_cache.main, ["--cache-dir", mats, "--object", str(found[0]),
+                                           "--row", str(found[1]), "--num-gt", "5",
+                                           "--output", os.path.join(work, "pr.png")])
+    out["mat_scores"] = int(len(scores))
+
+    corr = [(i, o, v) for i, (v, o) in enumerate(hico_meta.HICO_INTERACTIONS)]
+    prompts = text_label.hico_text_labels(corr, hico_meta.HICO_VERBS, hico_meta.HICO_OBJECTS)
+    objects = text_label.hico_obj_text_labels(hico_meta.HICO_OBJECTS)
+    out["text_label"] = [len(prompts), len(objects)]
+    if (out["split"] != [CLI_TRAIN_IMAGES // 2] * 2 or out["navigator_lines"] < 200
+            or out["html_pages"] != 2 or out["kge_table_rows"] < 1
+            or sum(counts.values()) < WN18RR["test"] or not scores.size
+            or out["text_label"] != [600, 81]):
+        raise AssertionError(f"host tools: {out}")
+    log(f"[tools] host tools: hicodet_split {out['split']}, navigator {out['navigator_lines']} "
+        f"lines for its script, generate_html_page {out['html_pages']} pages, kge_results_table "
+        f"{out['kge_table_rows']} rows, kge_relation_stats {counts}, visualise_and_cache "
+        f"{len(scores)} scores of object {found[0]} row {found[1]}, text_label {len(prompts)} pair "
+        f"and {len(objects)} object prompts")
+    return out
+
+
+def phase_tools(serving_img_s, train_img_s, cli_train_img_s, eager_ms):
+    """Phase 14: the user and measurement tools on the card, on what phases
+    8, 9 and 12 left (or stand-ins when the phase runs alone)."""
+    import importlib.util
+    import tempfile
+
+    have_mpl = importlib.util.find_spec("matplotlib") is not None
+    log(f"[tools] matplotlib {'is' if have_mpl else 'is not'} installed: the overlays and plots "
+        f"are {'drawn' if have_mpl else 'left out; the computing functions run'}")
+    out = dict(matplotlib=have_mpl)
+    with tempfile.TemporaryDirectory(prefix="skghoi_tools_") as work:
+        t0 = time.perf_counter()
+        inputs = tool_inputs(work)
+        root, ckpt = inputs["hico"], inputs["ckpt_02.pt"]
+        out["extract"] = tools_extract(root, work)
+        out["demo"] = tools_demo(root, ckpt, work, have_mpl)
+        out["visualise_detections"] = tools_visualise_detections(inputs["detect"],
+                                                                 inputs["detect_cache"], work)
+        out["learning_curve"] = tools_learning_curve(inputs["train_hicodet.log"], work, have_mpl)
+        out["perf_report"], out["perf_report_launches"] = tools_perf_report(serving_img_s,
+                                                                            train_img_s)
+        out["stage_profile"] = tools_stage_profile(eager_ms)
+        out["bench_io"] = tools_bench_io(root, cli_train_img_s)
+        out["host"] = tools_host(inputs, ckpt, work, have_mpl)
+        out["seconds"] = time.perf_counter() - t0
+    log(f"[tools] phase 14 took {out['seconds']:.1f} s")
+    return out
+
+
 @torch.no_grad()
 def profile_forward(model, batch, ovm, profile_dir, request_s):
     """One traced forward (device busy time, kernel count, top ops) and the
@@ -2533,6 +2976,19 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     if args.ddp_worker:
         return ddp_worker(*args.ddp_worker, [a for a in tool_args if a != "--"])
+    import shutil
+    import tempfile
+
+    global KEEP_DIR
+    KEEP_DIR = tempfile.mkdtemp(prefix="skghoi_keep_")
+    try:
+        return run_phases(args)
+    finally:
+        shutil.rmtree(KEEP_DIR, ignore_errors=True)
+
+
+def run_phases(args) -> int:
+    """Phases 1-14 in order; the result lines last."""
     from skghoi_torch.entry import make_batch
     from skghoi_torch.models.interaction_head import filter_detections
     from skghoi_torch.ops.roi_align_cuda import RoIAlignKernel, roi_align_cuda
@@ -2557,7 +3013,7 @@ def main() -> int:
     main_boxes = main_boxes.contiguous()
     kernel = phase_kernel(main_boxes, baseline)
     phase_parity()
-    kernel["launches"] = phase_main(REQUESTS, args.profile)
+    kernel["launches"], serving_img_s = phase_main(REQUESTS, args.profile)
     adjoint = phase_adjoint(main_boxes)
     phase_train_parity()
     train = phase_train(args.profile)
@@ -2583,6 +3039,11 @@ def main() -> int:
     kernel["share_of_bound_frcnn_spread"] = spread["bound_ms"] / spread["cold_ms"]
     stage1 = phase_stage1()
     kernel["launches_adamixer_chain"] = stage1["chain"]["launches"]
+    tools = phase_tools(serving_img_s, train["img_per_s"], cli["train_img_per_s"],
+                        kernel["eager_ms"])
+    kernel["launches_extract"] = tools["extract"]["launches"]
+    kernel["launches_demo"] = tools["demo"]["launches"]
+    kernel["launches_perf_report"] = tools["perf_report_launches"]
 
     log(f"[card] {card}")
     print(json.dumps({"library_ops": [adjoint]}))
@@ -2593,6 +3054,7 @@ def main() -> int:
     print(json.dumps({"ddp": ddp}))
     print(json.dumps({"detect": detect}))
     print(json.dumps({"detectors": stage1}))
+    print(json.dumps({"tools": tools}))
     print(json.dumps({"kernels": [kernel]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

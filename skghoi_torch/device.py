@@ -21,3 +21,10 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
             "pass device='cpu' to run the plain PyTorch path on the CPU"
         )
     return dev
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for the card's queued work on a CUDA ``device``; a no-op on the
+    CPU, whose ops return when done."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

@@ -32,6 +32,14 @@ from skghoi_torch.parallel.mesh import all_reduce_mean_
 ALL_LOSSES = ("hoi_loss", "interactiveness_loss", "transh_loss")
 
 
+def all_finite(total: torch.Tensor, grads: Sequence[torch.Tensor]) -> bool:
+    """The NaN guard's one host read: whether ``total`` and every entry of
+    every gradient are finite."""
+    # The largest |g| of each tensor: NaN or inf if any entry is.
+    peaks = torch.stack(torch._foreach_norm(list(grads), float("inf")))
+    return bool(torch.isfinite(total) & torch.isfinite(peaks).all())
+
+
 def build_train_step(model, optimizer: torch.optim.Optimizer, object_verb_mask: torch.Tensor,
                      loss_keys: Optional[Sequence[str]] = None) -> Callable:
     """Returns ``step(batch, generator=None, gumbel=None) -> (total, losses,
@@ -62,9 +70,7 @@ def build_train_step(model, optimizer: torch.optim.Optimizer, object_verb_mask: 
         losses = {k: v.detach() for k, v in out.losses.items()}
         # One all-reduce averages the gradients, the total and the losses.
         all_reduce_mean_([*grads, total, *losses.values()])
-        # The largest |g| of each tensor: NaN or inf if any entry is.
-        peaks = torch.stack(torch._foreach_norm(grads, float("inf")))
-        applied = bool(torch.isfinite(total) & torch.isfinite(peaks).all())
+        applied = all_finite(total, grads)
         if applied:
             optimizer.step()
         else:

@@ -19,9 +19,14 @@ from skghoi_torch.entry import build_model, entry, make_batch, verb_mask
 from skghoi_torch.models.backbone import DetectorBackbone
 from skghoi_torch.models.scg import SpatiallyConditionedGraph
 from skghoi_torch.ops.roi_align_cuda import roi_align_cuda
+from skghoi_torch.detect.adamixer import AdaMixerDetector
+from skghoi_torch.detect.detector import FPNDetector
+from skghoi_torch.detect.detr import DETR
 from skghoi_torch.detect.frcnn import FasterRCNN
-from skghoi_torch.tools import (cache_results, preprocess_detections, pretrain_transh_hoi,
-                                test_hicodet, train_hicodet, train_kge)
+from skghoi_torch.tools import (bench_io, cache_results, demo, extract_roi_features, perf_report,
+                                preprocess_detections, pretrain_transh_hoi, stage_profile,
+                                test_hicodet, train_detector, train_hicodet, train_kge,
+                                visualise_detections)
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "skghoi_tpu", "__graft_entry__", "bench",
@@ -54,7 +59,13 @@ def test_sources_scanned():
             "engine.py", "checkpoint.py", "hoi_eval.py", "train_hicodet.py", "sampling.py",
             "trainer.py", "tester.py", "train_kge.py", "pretrain_transh_hoi.py",
             "vcoco_eval.py", "vcoco_evaluation.py", "distributed.py", "mesh.py", "frcnn.py",
-            "generate.py", "eval_detections.py", "preprocess_detections.py"} <= names
+            "generate.py", "eval_detections.py", "preprocess_detections.py", "hico_meta.py",
+            "text_label.py", "logging.py", "profiling.py", "hicodet_split.py", "navigator.py",
+            "generate_html_page.py", "learning_curve.py", "kge_results_table.py",
+            "kge_relation_stats.py", "visualise_and_cache.py", "visualise_detections.py",
+            "demo.py", "extract_roi_features.py", "bench_io.py", "perf_report.py",
+            "stage_profile.py"} <= names
+    assert ROOT / "skghoi_torch" / "utils" / "__init__.py" in SOURCES
     assert ROOT / "skghoi_torch" / "detect" / "__init__.py" in SOURCES
 
 
@@ -77,9 +88,23 @@ def test_sources_scanned():
     lambda: preprocess_detections.main(["--ckpt-path", _NOWHERE + "/frcnn.pt", "--data-root",
                                         _NOWHERE, "--cache-dir", _NOWHERE]),
     lambda: train_kge.main(["--data", _NOWHERE, "--data-parallel"]),
+    lambda: FPNDetector(),
+    lambda: AdaMixerDetector(),
+    lambda: DETR(),
+    lambda: train_detector.main(["--synthetic", "--synthetic-root", _NOWHERE, "--cache-dir",
+                                 _NOWHERE]),
+    lambda: demo.main(["--data-root", _NOWHERE, "--output", _NOWHERE + "/overlay.png"]),
+    lambda: extract_roi_features.main(["--data-root", _NOWHERE, "--output-dir", _NOWHERE]),
+    lambda: visualise_detections.main(["--data-root", _NOWHERE, "--detection-root", _NOWHERE,
+                                       "--out-file", _NOWHERE + "/result.jpg"]),
+    lambda: perf_report.report(1, (64, 96), trace_dir=_NOWHERE),
+    lambda: stage_profile.profile(1, (64, 96)),
+    lambda: bench_io.main(["--root", _NOWHERE, "--train"]),
 ], ids=["resolve", "resolve-cuda", "scg", "backbone", "build_model", "make_batch", "verb_mask",
         "to_device", "train_hicodet", "test_hicodet", "cache_results", "train_kge",
-        "pretrain_transh_hoi", "frcnn", "preprocess_detections", "train_kge-data-parallel"])
+        "pretrain_transh_hoi", "frcnn", "preprocess_detections", "train_kge-data-parallel",
+        "fpn_detector", "adamixer", "detr", "train_detector", "demo", "extract_roi_features",
+        "visualise_detections", "perf_report", "stage_profile", "bench_io"])
 def test_default_device_is_cuda(build):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the default is usable")
