@@ -29,7 +29,8 @@ from skghoi_torch.weights import to_state_dict
 def save_checkpoint(path: str, model_state: Mapping[str, torch.Tensor], optim_state: Dict[str, Any],
                     epoch: int, iteration: int) -> None:
     """Write the checkpoint to ``path`` (via a temporary file, so a crash
-    mid-write leaves no truncated checkpoint under the final name)."""
+    mid-write leaves no truncated checkpoint under the final name; a write
+    that raises, e.g. on a full disk, removes its temporary file)."""
     payload = {
         "model_state_dict": dict(model_state),
         "optim_state_dict": optim_state,
@@ -38,7 +39,12 @@ def save_checkpoint(path: str, model_state: Mapping[str, torch.Tensor], optim_st
         "iteration": int(iteration),
     }
     tmp = f"{path}.tmp"
-    torch.save(payload, tmp)
+    try:
+        torch.save(payload, tmp)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        raise
     os.replace(tmp, path)
 
 

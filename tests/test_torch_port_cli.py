@@ -20,6 +20,7 @@ giving the same SCG TransH tables as JAX's ``load_pretrained_transh``.
 import glob
 import json
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -40,6 +41,15 @@ from skghoi_torch.tools import (cache_results, pretrain_transh_hoi, test_hicodet
 from skghoi_torch.weights import kge_state_dict
 
 torch.set_num_threads(2)
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """pytest's ``tmp_path``, removed when the test ends, passed or failed:
+    pytest keeps the directories of its last three runs, and a checkpoint of
+    the full-width SCG is 675 MB."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def _flags(parser):

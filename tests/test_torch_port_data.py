@@ -10,6 +10,7 @@ one; ``device_resize_canvas`` against JAX's (atol 1e-6) and against the host
 """
 
 import os
+import shutil
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -48,13 +49,16 @@ def roots(tmp_path_factory):
     """The same synthetic HICO-DET written by both packages: a landscape
     train split and a portrait test split."""
     out = {}
-    for name, make in (("jax", jsynthetic.make_synthetic_hicodet),
-                       ("port", synthetic.make_synthetic_hicodet)):
-        root = str(tmp_path_factory.mktemp(f"synth_{name}"))
-        make(root, "train2015", num_images=6, seed=3)
-        make(root, "test2015", num_images=5, image_size=(150, 110), seed=4)
-        out[name] = root
-    return out
+    try:
+        for name, make in (("jax", jsynthetic.make_synthetic_hicodet),
+                           ("port", synthetic.make_synthetic_hicodet)):
+            out[name] = root = str(tmp_path_factory.mktemp(f"synth_{name}"))
+            make(root, "train2015", num_images=6, seed=3)
+            make(root, "test2015", num_images=5, image_size=(150, 110), seed=4)
+        yield out
+    finally:
+        for root in out.values():
+            shutil.rmtree(root, ignore_errors=True)
 
 
 def _factories(roots, partition="train2015", **kw):

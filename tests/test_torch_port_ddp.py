@@ -34,6 +34,7 @@ The rendezvous is a ``file://`` in the test's own directory (no TCP port).
 import contextlib
 import io
 import multiprocessing as mp
+import shutil
 import time
 
 import numpy as np
@@ -64,6 +65,15 @@ SGD_LR = 1e-2
 # tests/test_torch_port_train.py::INIT_KEY).
 INIT_SEED = 3
 GUMBEL_COLS = 15 * 30 * 117
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """pytest's ``tmp_path``, removed when the test ends, passed or failed:
+    pytest keeps the directories of its last three runs, and a checkpoint of
+    the full-width SCG is 675 MB."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def _run_ranks(tmp_path, target, *args):
@@ -159,16 +169,22 @@ def _hoi_rank(reference_path):
 
 @pytest.fixture(scope="module")
 def hoi_runs(tmp_path_factory):
+    """The whole-batch step and both ranks' results; the reference
+    gradients and parameters handed to the ranks are removed when the module
+    ends."""
     tmp_path = tmp_path_factory.mktemp("ddp_hoi")
-    batch = make_batch(GLOBAL_BATCH, CANVAS, with_targets=True, device="cpu")
-    model, want = _hoi_step(batch, _gumbel(), _sgd)
-    trained = _trained(model)
-    assert batch.targets is not None and want["applied"]
-    torch.save(dict(grads={n: p.grad for n, p in trained.items()},
-                    params={n: p.detach() for n, p in trained.items()}),
-               tmp_path / "reference.pt")
-    del model, trained
-    return want, _run_ranks(tmp_path, _hoi_rank, str(tmp_path / "reference.pt"))
+    try:
+        batch = make_batch(GLOBAL_BATCH, CANVAS, with_targets=True, device="cpu")
+        model, want = _hoi_step(batch, _gumbel(), _sgd)
+        trained = _trained(model)
+        assert batch.targets is not None and want["applied"]
+        torch.save(dict(grads={n: p.grad for n, p in trained.items()},
+                        params={n: p.detach() for n, p in trained.items()}),
+                   tmp_path / "reference.pt")
+        del model, trained
+        yield want, _run_ranks(tmp_path, _hoi_rank, str(tmp_path / "reference.pt"))
+    finally:
+        shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def test_ddp_step_losses_equal_whole_batch(hoi_runs):

@@ -18,6 +18,7 @@
 
 import json
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -37,6 +38,16 @@ from skghoi_torch.tools import preprocess_detections
 
 torch.set_num_threads(2)
 
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """pytest's ``tmp_path``, removed when the test ends, passed or failed:
+    pytest keeps the directories of its last three runs, and a Faster R-CNN
+    checkpoint is about 160 MB."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
+
 PART = "train2015"
 WEIGHT_SEED = 2
 
@@ -44,8 +55,11 @@ WEIGHT_SEED = 2
 @pytest.fixture(scope="module")
 def root(tmp_path_factory):
     root = str(tmp_path_factory.mktemp("detect_synth"))
-    make_synthetic_hicodet(root, PART, num_images=6, seed=3)
-    return root
+    try:
+        make_synthetic_hicodet(root, PART, num_images=6, seed=3)
+        yield root
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def _datasets(root):

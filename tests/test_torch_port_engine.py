@@ -17,6 +17,7 @@ compiled once for the file.
 import contextlib
 import io
 import os
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -62,9 +63,30 @@ def _record(engine, losses, maps):
     engine.train_step, engine._on_end_epoch = train_step, on_end_epoch
 
 
+@pytest.fixture
+def tmp_path(tmp_path):
+    """pytest's ``tmp_path``, removed when the test ends, passed or failed:
+    pytest keeps the directories of its last three runs, and a checkpoint of
+    the full-width SCG is 675 MB."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
+
 @pytest.fixture(scope="module")
 def run(tmp_path_factory):
+    """The epoch through both engines; its data and both engines'
+    checkpoints (``ckpt_02.pt`` from the resume test too) are removed when
+    the module ends."""
     root = str(tmp_path_factory.mktemp("engine_synth"))
+    cache = tmp_path_factory.mktemp("engine_ckpts")
+    try:
+        yield _run(root, cache)
+    finally:
+        for d in (root, cache):
+            shutil.rmtree(d, ignore_errors=True)
+
+
+def _run(root, cache):
     make_synthetic_hicodet(root, "train2015", num_images=4, seed=0)
     det = os.path.join(root, "detections_train2015")
     jf = JaxDataFactory("hicodet", "train2015", root, det, flip=True, seed=1, **SMALL)
@@ -79,7 +101,6 @@ def run(tmp_path_factory):
     variables = jax.tree_util.tree_map(np.asarray, variables)
     initial = to_state_dict(variables)
 
-    cache = tmp_path_factory.mktemp("engine_ckpts")
     jengine = JaxEngine(model, variables, jloader, None, object_verb_mask=ovm, print_interval=1,
                         cache_dir=str(cache / "jax"), seed=ENGINE_SEED, use_mesh=False)
     want = dict(losses=[], maps=[])

@@ -12,6 +12,7 @@ eval step serve the file.
 
 import os
 import pickle
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -155,8 +156,11 @@ def _replay(outputs):
 @pytest.fixture(scope="module")
 def hico_root(tmp_path_factory):
     root = str(tmp_path_factory.mktemp("eval_synth"))
-    make_synthetic_hicodet(root, "test2015", num_images=6, seed=7)
-    return root
+    try:
+        make_synthetic_hicodet(root, "test2015", num_images=6, seed=7)
+        yield root
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def _hico(cls, root):

@@ -13,6 +13,7 @@ log feeds ``learning_curve`` (``parse_log`` and stdout equal to JAX's).
 """
 
 import json
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -32,6 +33,16 @@ from skghoi_torch.models.resnet import FrozenBatchNorm
 from skghoi_torch.tools import bench_io, learning_curve, perf_report, stage_profile
 
 torch.set_num_threads(2)
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """pytest's ``tmp_path``, removed when the test ends, passed or failed:
+    pytest keeps the directories of its last three runs, and a checkpoint of
+    the full-width SCG is 675 MB."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
 
 CANVAS = (64, 96)
 

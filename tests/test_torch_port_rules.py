@@ -3,7 +3,11 @@
 ``skghoi_torch`` and ``chip_smoke.py`` import nothing of JAX, flax, the JAX
 package or torchvision (checked on the source, by AST).  Entry points run on
 CUDA unless the caller names the CPU: without a card they raise instead of
-falling back, ``train_hicodet`` under torchrun's environment too.
+falling back, ``train_hicodet`` under torchrun's environment too.  The
+port's tests remove what they write (checked on their source, by AST): every
+``tmp_path_factory.mktemp`` directory is removed by its fixture after the
+``yield``, and a test file that writes checkpoints overrides ``tmp_path`` with
+a fixture that removes the test's directory when it ends.
 """
 
 import ast
@@ -139,3 +143,125 @@ def test_cpu_on_request():
     assert batch.images.device.type == "cpu" and batch.images.shape == (1, 832, 1344, 3)
     scores = fn(batch)
     assert scores.shape == (1, 15, 30, 117) and torch.isfinite(scores).all()
+
+
+# --- the port's tests remove what they write ------------------------------------
+
+TEST_FILES = sorted((ROOT / "tests").glob("test_torch_*.py"))
+WRITER_TOOLS = ("train_hicodet", "train_detector", "pretrain_transh_hoi")
+
+
+def _is_rmtree(node):
+    return (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
+            and node.func.attr == "rmtree" and getattr(node.func.value, "id", None) == "shutil")
+
+
+def _removes_after_yield(fn, names):
+    """Whether the generator ``fn`` calls ``shutil.rmtree`` after its
+    ``yield`` (later in its body, or in a ``finally`` around it), in code
+    that names each of ``names``."""
+    yields = [n.end_lineno for n in ast.walk(fn) if isinstance(n, (ast.Yield, ast.YieldFrom))]
+    if not yields:
+        return False
+    after = [n for n in ast.walk(fn) if getattr(n, "lineno", 0) > max(yields)]
+    seen = {n.id for n in after if isinstance(n, ast.Name)}
+    return any(map(_is_rmtree, after)) and set(names) <= seen
+
+
+def _is_fixture(fn):
+    return any("fixture" in ast.unparse(d) for d in fn.decorator_list)
+
+
+def _mktemp_fixtures(tree):
+    """``(function, names bound to its mktemp directories)`` for each
+    function that calls ``tmp_path_factory.mktemp``."""
+    out = []
+    for fn in ast.walk(tree):
+        if not isinstance(fn, ast.FunctionDef):
+            continue
+        calls = [n for n in ast.walk(fn) if isinstance(n, ast.Call)
+                 and isinstance(n.func, ast.Attribute) and n.func.attr == "mktemp"
+                 and getattr(n.func.value, "id", None) == "tmp_path_factory"]
+        if not calls:
+            continue
+        names = set()
+        for node in ast.walk(fn):
+            if isinstance(node, ast.Assign) and any(c in ast.walk(node.value) for c in calls):
+                for target in node.targets:
+                    base = target.value if isinstance(target, ast.Subscript) else target
+                    names |= {n.id for n in ast.walk(base) if isinstance(n, ast.Name)}
+        out.append((fn, names))
+    return out
+
+
+def _writes_checkpoints(tree):
+    """Whether the file calls a checkpoint writer: ``save_checkpoint``, an
+    engine given a ``cache_dir``, or the ``main`` of ``train_hicodet``,
+    ``train_detector``, ``pretrain_transh_hoi`` or ``bench_io --train``.
+    Calls given ``_NOWHERE`` must raise before they write, and do not count."""
+    for call in ast.walk(tree):
+        if not isinstance(call, ast.Call):
+            continue
+        inside = list(ast.walk(call))
+        if any(isinstance(n, ast.Name) and "nowhere" in n.id.lower() for n in inside):
+            continue
+        func = call.func
+        name = func.id if isinstance(func, ast.Name) else getattr(func, "attr", "")
+        owner = getattr(getattr(func, "value", None), "id", None)
+        if isinstance(func, ast.Name) and name.endswith("save_checkpoint"):
+            return True
+        if name.endswith("Engine") and any(k.arg == "cache_dir" for k in call.keywords):
+            return True
+        if name == "main" and (owner in WRITER_TOOLS or (owner == "bench_io" and any(
+                isinstance(n, ast.Constant) and n.value == "--train" for n in inside))):
+            return True
+    return False
+
+
+def _has_tmp_path_cleanup(tree):
+    """A module-level ``tmp_path`` fixture over pytest's that removes it."""
+    return any(isinstance(fn, ast.FunctionDef) and fn.name == "tmp_path" and _is_fixture(fn)
+               and [a.arg for a in fn.args.args] == ["tmp_path"]
+               and _removes_after_yield(fn, {"tmp_path"}) for fn in tree.body)
+
+
+@pytest.mark.parametrize("path", TEST_FILES, ids=lambda p: p.name)
+def test_tests_remove_what_they_write(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for fn, names in _mktemp_fixtures(tree):
+        assert _is_fixture(fn) and names, f"{path.name}:{fn.lineno} {fn.name}"
+        assert _removes_after_yield(fn, names), (
+            f"{path.name}:{fn.lineno} {fn.name} does not remove {sorted(names)} after its yield")
+    if _writes_checkpoints(tree):
+        assert _has_tmp_path_cleanup(tree), f"{path.name} writes checkpoints and keeps tmp_path"
+
+
+def test_cleanup_rules_see_what_they_check():
+    """The scan finds today's writers and fixtures, and refuses a fixture that
+    removes another directory than its own, and a writer whose ``tmp_path``
+    fixture removes the directory before the test instead of after it."""
+    trees = {p.name[len("test_torch_port_"):-3]: ast.parse(p.read_text()) for p in TEST_FILES
+             if p.name.startswith("test_torch_port_")}
+    assert {"engine", "ddp", "cli", "train_detector", "measure", "tools", "checkpoint"} <= {
+        name for name, tree in trees.items() if _writes_checkpoints(tree)}
+    assert not _writes_checkpoints(trees["rules"])  # its CLI calls raise before writing
+    assert {"engine", "ddp", "tools", "detect_tools", "data", "eval"} <= {
+        name for name, tree in trees.items() if _mktemp_fixtures(tree)}
+    assert [sorted(names) for _, names in _mktemp_fixtures(trees["engine"])] == [["cache", "root"]]
+
+    kept = ast.parse(
+        "@pytest.fixture(scope='module')\n"
+        "def root(tmp_path_factory):\n"
+        "    root = str(tmp_path_factory.mktemp('x'))\n"
+        "    yield root\n"
+        "    shutil.rmtree(other)\n")
+    ((fn, names),) = _mktemp_fixtures(kept)
+    assert names == {"root"} and not _removes_after_yield(fn, names)
+    returned = ast.parse(
+        "@pytest.fixture\n"
+        "def tmp_path(tmp_path):\n"
+        "    shutil.rmtree(tmp_path)\n"
+        "    return tmp_path\n"
+        "def test_x(tmp_path):\n"
+        "    train_hicodet.main(['--cache-dir', str(tmp_path)])\n")
+    assert _writes_checkpoints(returned) and not _has_tmp_path_cleanup(returned)

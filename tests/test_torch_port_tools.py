@@ -22,6 +22,7 @@ import io
 import json
 import logging
 import os
+import shutil
 import sys
 import tempfile
 import time
@@ -64,6 +65,16 @@ from skghoi_torch.weights import to_state_dict
 
 torch.set_num_threads(2)
 
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """pytest's ``tmp_path``, removed when the test ends, passed or failed:
+    pytest keeps the directories of its last three runs, and the demo's
+    checkpoints are hundreds of MB."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
+
 SMALL = dict(min_size=64, max_size=107, canvas_landscape=(64, 96), canvas_portrait=(96, 64))
 
 
@@ -85,9 +96,12 @@ def synth(tmp_path_factory):
     """Synthetic HICO-DET, both partitions (the port's writer, whose files
     equal the JAX writer's byte for byte: ``test_torch_port_data.py``)."""
     root = str(tmp_path_factory.mktemp("synth"))
-    make_synthetic_hicodet(root, "train2015", num_images=6)
-    make_synthetic_hicodet(root, "test2015", num_images=6)
-    return root
+    try:
+        make_synthetic_hicodet(root, "train2015", num_images=6)
+        make_synthetic_hicodet(root, "test2015", num_images=6)
+        yield root
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def _run(main, argv, capsys):

@@ -30,6 +30,7 @@
 import glob
 import json
 import os
+import shutil
 from unittest import mock
 
 import numpy as np
@@ -51,6 +52,16 @@ from test_detr import synth_detr_state_dict
 from test_torch_port_ddp import _run_ranks
 
 torch.set_num_threads(2)
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """pytest's ``tmp_path``, removed when the test ends, passed or failed:
+    pytest keeps the directories of its last three runs, and the detectors' and
+    the SCG's checkpoints written here are hundreds of MB each."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
 
 TINY = ["--num-queries", "12", "--num-stages", "2", "--content-dim", "64", "--groups", "4",
         "--in-points", "8", "--out-points", "16", "--ffn-dim", "128"]
