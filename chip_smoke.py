@@ -159,6 +159,14 @@ Phases, each reporting on its own lines; any failure exits non-zero:
     --arch adamixer`` -> ``preprocess_detections --detector adamixer`` ->
     one ``train_hicodet --synthetic`` epoch on those caches, whose RoIAlign
     launches the kernels line reports as ``launches_adamixer_chain``.
+    Then bfloat16 (13e): ``bench.py --stage1``'s model, ``DETR(dtype=
+    torch.bfloat16)`` (91 classes, 6+6 layers, 100 queries, seeded weights)
+    at 832x1344, batch 8, timed by ``bench.py``'s chained method with CUDA
+    events and printed as ``detr_r50_inference_images_per_sec`` (median of
+    3, with the spread) beside the float32 model; its encoder's input
+    float32; the batch's eight images card against CPU in bfloat16, each
+    output of each image within ``S1_BF16_FACTOR`` x the card's own
+    bfloat16-against-float32 gap on it.
 
 14. The user and measurement tools on the card, on what phases 8, 9 and 12
     left (``keep``; run alone, :func:`tool_inputs` makes stand-ins): (a)
@@ -2099,6 +2107,17 @@ S1_GRAD_FLOAT64_TOL = 2e-2
 # card's offset generator gradients 5-90% from float64); after training
 # one ResNet gradient was 1.5e-3 apart even in float64.
 S1_GRAD64_TOL = 1e-4
+# phase 13e: bfloat16 on the card against bfloat16 on the CPU, each output
+# of each image within S1_BF16_FACTOR x the card's own bfloat16-against-
+# float32 gap on it, and that gap under S1_BF16_GAP_MAX of the output's
+# largest, so that a broken bfloat16 path cannot pass by a large gap.  On an
+# H100 over 6 seeds x 8 images x 2 outputs (scripts/detr_bf16_readings.py)
+# the ratio was at most 0.86 (boxes, where the gap is smallest), median 0.35.
+S1_BF16_FACTOR = 2.0
+S1_BF16_GAP_MAX = 0.1
+DETR_BENCH_BATCH = 8  # phase 13e: bench.py --stage1's shape, 832x1344 at batch 8
+DETR_BENCH_ITERS = 10  # phase 13e: bench.py's chain length (iters + 1 calls against 1)
+DETR_BENCH_REPEATS = 3  # phase 13e: bench.py's repeats, median reported
 
 
 def _rel(a, b):
@@ -2470,6 +2489,96 @@ def stage1_chain(root):
                 hoi_steps=engine.iteration, hoi_losses=engine.step_losses, launches=launches)
 
 
+def _bf16_held(name, card, card_f32, cpu):
+    """Phase 13e: one output of the bfloat16 model on the card against the
+    bfloat16 model on the CPU, beside the card's float32 model on the same
+    inputs, image by image (``S1_BF16_FACTOR``, ``S1_BF16_GAP_MAX``): per
+    image the error, the gap and their ratio."""
+    held = []
+    for i in range(card.shape[0]):
+        err, gap = _rel(card[i], cpu[i]), _rel(card[i], card_f32[i])
+        if not (card.dtype == cpu.dtype == torch.float32 and torch.isfinite(card[i]).all()
+                and err <= S1_BF16_FACTOR * gap and gap <= S1_BF16_GAP_MAX):
+            raise AssertionError(f"{name} bf16 card vs CPU, image {i}: {err:.3e}, bf16 vs fp32 "
+                                 f"gap {gap:.3e}, dtype {card.dtype}")
+        held.append(dict(err=err, gap=gap, ratio=err / gap))
+    return held
+
+
+def chained_img_s(model, images, sizes, iters=DETR_BENCH_ITERS, repeats=DETR_BENCH_REPEATS):
+    """``bench.py --stage1``'s method on the card: after a warm-up, each repeat
+    times one forward and a chain of ``iters + 1`` (each input depends on the
+    last output's scores), by CUDA events, and takes the difference over
+    ``iters``; img/s of each repeat, their median, least and most."""
+    def chain(n):
+        carry = torch.zeros((), device=images.device)
+        for _ in range(n):
+            carry = model(images + carry * 1e-12, sizes).scores.sum()
+
+    def timed(n):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        chain(n)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / 1e3
+
+    chain(2)
+    samples = []
+    for _ in range(repeats):
+        t_one = timed(1)
+        samples.append(images.shape[0] * iters / (timed(iters + 1) - t_one))
+    return dict(median=sorted(samples)[repeats // 2], min=min(samples), max=max(samples),
+                samples=samples)
+
+
+def stage1_detr_bf16(seed=0):
+    """Phase 13e: ``bench.py --stage1``'s model on the card: DETR-R50 (91
+    classes, 6+6 layers, 100 queries, random facebookresearch-layout weights
+    and images from ``seed``) in bfloat16 at 832x1344, batch 8, timed by
+    ``chained_img_s`` beside the float32 model; the batch in bfloat16 card
+    against CPU, image by image; the encoder's input float32 and
+    ``input_proj``'s output bfloat16 on the card."""
+    from skghoi_torch.detect.detr import DETR, load_torch_detr, random_state_dict
+
+    sd = load_torch_detr(random_state_dict(seed))
+    models = {}
+    for name, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        models[name] = DETR(dtype=dt, device="cuda")
+        models[name].load_state_dict(sd, strict=True)
+    h, w = CANVAS
+    rng = np.random.default_rng(seed)
+    images = torch.from_numpy(rng.uniform(-1, 1, (DETR_BENCH_BATCH, h, w, 3))
+                              .astype(np.float32)).cuda()
+    sizes = torch.tensor([[float(h), float(w)]] * DETR_BENCH_BATCH, device="cuda")
+    out = {name: chained_img_s(m, images, sizes) for name, m in models.items()}
+
+    seen = {}
+    card = models["bf16"]
+    hooks = [card.encoder[0].register_forward_pre_hook(
+                 lambda m, args: seen.__setitem__("encoder_in", args[0].dtype)),
+             card.input_proj.register_forward_hook(
+                 lambda m, args, o: seen.__setitem__("input_proj_out", o.dtype))]
+    with torch.no_grad():
+        got = card.raw(images)
+        for hk in hooks:
+            hk.remove()
+        ref = models["fp32"].raw(images)
+        del models, card
+        t0 = time.perf_counter()
+        cpu = DETR(dtype=torch.bfloat16, device="cpu")
+        cpu.load_state_dict(sd, strict=True)
+        want = cpu.raw(images.cpu())
+        out["cpu_s"] = time.perf_counter() - t0
+    out["logits"], out["boxes"] = (_bf16_held(f"DETR {n}", g, r, c) for n, g, r, c in
+                                   zip(("logits", "boxes"), got, ref, want))
+    out["ratio_max"] = max(x["ratio"] for k in ("logits", "boxes") for x in out[k])
+    out["dtypes"] = {k: str(v) for k, v in seen.items()}
+    if seen != {"encoder_in": torch.float32, "input_proj_out": torch.bfloat16}:
+        raise AssertionError(f"DETR bf16 on the card: {seen}")
+    return out
+
+
 def phase_stage1():
     """Phase 13: the trainable stage-1 detectors at full width: FPNDetector
     and AdaMixer (card vs CPU, the train step at batch 4, 832x1344), DETR-R50
@@ -2541,6 +2650,21 @@ def phase_stage1():
             f"{c['detector_losses'][-1]:.4f}, {c['detector_train_s']:.2f} s) -> preprocess_detections "
             f"--detector adamixer ({c['cache_s']:.2f} s) -> train_hicodet --synthetic "
             f"({c['hoi_steps']} steps, roi_align launches {c['launches']})")
+        t0 = time.perf_counter()
+        d = out["detr_bf16"] = stage1_detr_bf16()
+        d["phase_s"] = time.perf_counter() - t0
+        b, f = d["bf16"], d["fp32"]
+        log(f"[stage1] detr_r50_inference_images_per_sec {b['median']:.4f} (bf16, 832x1344, batch "
+            f"{DETR_BENCH_BATCH}, median of {DETR_BENCH_REPEATS} chains of {DETR_BENCH_ITERS} + 1 "
+            f"against 1; spread {b['min']:.4f}-{b['max']:.4f}); float32 (TF32 off) "
+            f"{f['median']:.4f} ({f['min']:.4f}-{f['max']:.4f}) img/s")
+        log(f"[stage1] DETR bf16 card vs CPU ({DETR_BENCH_BATCH} images, 6+6 layers), image by "
+            f"image, error over the card's bf16-vs-fp32 gap (tol {S1_BF16_FACTOR:g}): logits "
+            f"{[round(x['ratio'], 3) for x in d['logits']]}, boxes "
+            f"{[round(x['ratio'], 3) for x in d['boxes']]}; largest error logits "
+            f"{max(x['err'] for x in d['logits']):.3e}, boxes "
+            f"{max(x['err'] for x in d['boxes']):.3e}; encoder input {d['dtypes']['encoder_in']}, "
+            f"input_proj {d['dtypes']['input_proj_out']}; the CPU's run {d['cpu_s']:.1f} s")
     return out
 
 

@@ -136,14 +136,18 @@ class DETRDetections(NamedTuple):
 class DETR(nn.Module):
     """DETR-R50 on ``device`` (default ``cuda``; the CPU only when asked
     for): images -> per-query (box, label, score); :meth:`raw` gives the
-    outputs a set loss needs.  Images are ``[B, H, W, 3]``, normalised."""
+    outputs a set loss needs.  Images are ``[B, H, W, 3]``, normalised.
+
+    Parameters are float32.  The ResNet-50 and ``input_proj`` compute in
+    ``dtype``; the transformer and the heads in float32, as in JAX."""
 
     def __init__(self, num_classes: int = 91, num_layers: int = N_LAYERS,
-                 num_queries: int = N_QUERIES, device: Optional[Union[str, torch.device]] = None):
+                 num_queries: int = N_QUERIES, dtype: torch.dtype = torch.float32,
+                 device: Optional[Union[str, torch.device]] = None):
         super().__init__()
         device = resolve_device(device)
-        self.body = ResNet50()
-        self.input_proj = Conv2d(2048, D_MODEL, 1)
+        self.body = ResNet50(dtype=dtype)
+        self.input_proj = Conv2d(2048, D_MODEL, 1, dtype=dtype)
         self.encoder = nn.ModuleList(EncoderLayer() for _ in range(num_layers))
         self.decoder = nn.ModuleList(DecoderLayer() for _ in range(num_layers))
         self.decoder_norm = nn.LayerNorm(D_MODEL, eps=LN_EPS)
@@ -171,6 +175,11 @@ class DETR(nn.Module):
     def raw(self, images: Tensor) -> Tuple[Tensor, Tensor]:
         """-> (class logits ``[B, Q, C+1]``, boxes cxcywh in [0, 1]), float32."""
         feat = self.input_proj(self.body(images.permute(0, 3, 1, 2))[-1])  # [B, 256, h, w]
+        # JAX's EncoderLayer, DecoderLayer and PackedMHA take ``dtype`` but do
+        # not pass it on (skghoi_tpu/detect/detr.py:95-119): ``src + pos`` and
+        # the float32 projections promote the features, so the transformer
+        # runs in its parameters' dtype (float32) whatever ``dtype`` is.
+        feat = feat.to(self.query_embed.dtype)
         b, _, fh, fw = feat.shape
         src = feat.permute(0, 2, 3, 1).reshape(b, fh * fw, D_MODEL)
         pos = self._position(fh, fw, src.device)

@@ -7,7 +7,10 @@ falling back, ``train_hicodet`` under torchrun's environment too.  The
 port's tests remove what they write (checked on their source, by AST): every
 ``tmp_path_factory.mktemp`` directory is removed by its fixture after the
 ``yield``, and a test file that writes checkpoints overrides ``tmp_path`` with
-a fixture that removes the test's directory when it ends.
+a fixture that removes the test's directory when it ends.  Every field of
+a flax module of the JAX package that a JAX caller sets, where the port has
+a class of that name, is an ``__init__`` argument there, or is listed with
+its reason (checked on the sources of both, by AST).
 """
 
 import ast
@@ -265,3 +268,181 @@ def test_cleanup_rules_see_what_they_check():
         "def test_x(tmp_path):\n"
         "    train_hicodet.main(['--cache-dir', str(tmp_path)])\n")
     assert _writes_checkpoints(returned) and not _has_tmp_path_cleanup(returned)
+
+
+# --- the port's modules take the JAX fields that JAX's callers set ------------------
+
+# (class, JAX field) -> why the port's class takes no argument of that name:
+# ("renamed", its name in the port) or ("not to port", why).
+FIELD_EXCEPTIONS = {
+    ("ResNet50", "scan_blocks"): ("not to port", "nn.scan of same-shape blocks: a compile lever"),
+    ("DetectorBackbone", "scan_blocks"): ("not to port", "passed to ResNet50"),
+    ("SpatiallyConditionedGraph", "scan_blocks"): ("not to port", "passed to ResNet50"),
+    ("Bottleneck", "features"): ("renamed", "width"),
+    ("Bottleneck", "strides"): ("renamed", "stride"),
+}
+
+
+def _flax_modules():
+    """(file, class) -> its dataclass fields with their defaults' source
+    (None: no default), inherited ones first, for every flax module of the
+    JAX package (a class of ``nn.Module`` in a file that imports
+    ``flax.linen``)."""
+    out = {}
+    for path in sorted((ROOT / "skghoi_tpu").rglob("*.py")):
+        tree = ast.parse(path.read_text(), filename=str(path))
+        if "flax.linen" not in set(_imported_modules(tree)):
+            continue
+        local = {}
+        for cls in tree.body:
+            if not isinstance(cls, ast.ClassDef):
+                continue
+            bases = [ast.unparse(b) for b in cls.bases]
+            if "nn.Module" not in bases and not set(bases) & set(local):
+                continue
+            fields = {f: d for b in bases for f, d in local.get(b, {}).items()}
+            for n in cls.body:
+                if isinstance(n, ast.AnnAssign) and isinstance(n.target, ast.Name):
+                    fields[n.target.id] = None if n.value is None else ast.unparse(n.value)
+            local[cls.name] = fields
+            out[(path.relative_to(ROOT).as_posix(), cls.name)] = fields
+    return out
+
+
+def _imported_modules(tree):
+    for node in tree.body:
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+def _jax_callers():
+    """The JAX package's sources and its entry scripts: every file but the
+    tests."""
+    return sorted((ROOT / "skghoi_tpu").rglob("*.py")) + [ROOT / "bench.py",
+                                                           ROOT / "__graft_entry__.py"]
+
+
+def _flax_calls(tree, flax_names):
+    """Yield (enclosing flax class or None, called class, {field: value})
+    for each call of a JAX package flax class in ``tree``: a name bound by a
+    class of the file or an import from ``skghoi_tpu``, or an attribute of a
+    module imported from it.  Positional arguments take the fields in order."""
+    names, modules = {}, set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom):
+            ours = node.level > 0 or (node.module or "").startswith("skghoi_tpu")
+            for a in node.names if ours else ():
+                if a.name in flax_names:
+                    names[a.asname or a.name] = a.name
+                else:
+                    modules.add(a.asname or a.name)
+        elif isinstance(node, ast.Import):
+            modules.update(a.asname or a.name for a in node.names
+                           if a.name.startswith("skghoi_tpu"))
+    for cls in tree.body:
+        if isinstance(cls, ast.ClassDef) and cls.name in flax_names:
+            names[cls.name] = cls.name
+
+    def visit(node, owner):
+        if isinstance(node, ast.ClassDef):
+            owner = node.name if node.name in flax_names else None
+        if isinstance(node, ast.Call):
+            f = node.func
+            called = (names.get(f.id) if isinstance(f, ast.Name) else
+                      f.attr if isinstance(f, ast.Attribute) and f.attr in flax_names
+                      and ast.unparse(f.value) in modules else None)
+            if called:
+                yield owner, called, node
+        for child in ast.iter_child_nodes(node):
+            yield from visit(child, owner)
+
+    yield from visit(tree, None)
+
+
+def _jax_fields_set():
+    """(class, field) for every field of a JAX flax module that a JAX caller
+    sets to something other than its default: a value other than the
+    default's source, or ``self.<g>`` inside a flax module whose own ``g``
+    is so set (followed to a fixed point)."""
+    modules = _flax_modules()
+    fields = {}
+    for (_, name), f in modules.items():
+        fields.setdefault(name, {}).update(f)
+    direct, through = set(), set()
+    for path in _jax_callers():
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for owner, called, call in _flax_calls(tree, fields):
+            order = [f for f in fields[called] if f not in ("parent", "name")]
+            given = dict(zip(order, call.args))
+            given.update((k.arg, k.value) for k in call.keywords if k.arg)
+            for field, value in given.items():
+                src = ast.unparse(value)
+                if field not in fields[called] or src == fields[called][field]:
+                    continue
+                if owner and src.startswith("self.") and src[5:] in fields[owner]:
+                    through.add(((owner, src[5:]), (called, field)))
+                else:
+                    direct.add((called, field))
+    used = set(direct)
+    while True:
+        more = {dst for src, dst in through if src in used} - used
+        if not more:
+            return used
+        used |= more
+
+
+def _port_init_args():
+    """class name -> the argument names of its ``__init__`` (a class without
+    one takes its first base's in the same file), for the port's classes."""
+    out = {}
+    for path in sorted((ROOT / "skghoi_torch").rglob("*.py")):
+        for cls in ast.parse(path.read_text(), filename=str(path)).body:
+            if not isinstance(cls, ast.ClassDef):
+                continue
+            init = [n for n in cls.body if isinstance(n, ast.FunctionDef) and n.name == "__init__"]
+            if init:
+                a = init[0].args
+                out[cls.name] = {x.arg for x in a.args[1:] + a.kwonlyargs}
+            elif cls.bases and ast.unparse(cls.bases[0]) in out:
+                out[cls.name] = out[ast.unparse(cls.bases[0])]
+    return out
+
+
+def _missing(used, port):
+    """The set fields of classes the port has that its ``__init__`` does not
+    take and no exception covers, and the exceptions that went unused."""
+    missing, excused = [], set()
+    for name, field in sorted(used):
+        if name not in port or field in port[name]:
+            continue
+        reason = FIELD_EXCEPTIONS.get((name, field))
+        if reason is None or (reason[0] == "renamed" and reason[1] not in port[name]):
+            missing.append(f"{name}.{field}")
+        excused.add((name, field))
+    return missing, set(FIELD_EXCEPTIONS) - excused
+
+
+def test_port_modules_take_the_jax_fields():
+    """Every field that a JAX caller sets (``_jax_fields_set``) of a flax
+    module whose class the port has too is an ``__init__`` argument of the
+    port's class, or is listed in ``FIELD_EXCEPTIONS`` with its reason."""
+    missing, stale = _missing(_jax_fields_set(), _port_init_args())
+    assert not missing, f"fields JAX's callers set that the port's classes do not take: {missing}"
+    assert not stale, f"stale exceptions: {stale}"
+
+
+def test_jax_fields_rule_sees_what_it_checks():
+    """The rule finds the fields it is about: ``bench.py --stage1``'s
+    ``DETR(dtype=jnp.bfloat16)`` and, through ``dtype=self.dtype``, the
+    ResNet-50 under it; the SCG's own backbone dtype; never a field left at
+    its default (AdaMixer's and the FPN detector's ``dtype``, the SCG's
+    ``fg_iou_thresh``, ``transh_margin``, ``max_transh_pairs``).  Without DETR's ``dtype`` in the port the rule fails."""
+    used, port = _jax_fields_set(), _port_init_args()
+    assert {("DETR", "dtype"), ("ResNet50", "dtype"), ("SpatiallyConditionedGraph", "dtype"),
+            ("DetectorBackbone", "dtype")} <= used
+    assert not {f for f in used if f[1] in ("fg_iou_thresh", "transh_margin", "max_transh_pairs")
+                or f in {("AdaMixerDetector", "dtype"), ("FPNDetector", "dtype")}}
+    port["DETR"] = port["DETR"] - {"dtype"}
+    assert _missing(used, port)[0] == ["DETR.dtype"]
