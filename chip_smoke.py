@@ -28,19 +28,25 @@ Phases, each reporting on its own lines; any failure exits non-zero:
    answering ``REQUESTS`` forward requests with the launch counts set to 0
    just before; it checks the scores, that the kernel ran once per request,
    prints img/s, and holds the scores against the float32 network's.
-5. The RoIAlign gradient: ``RoIAlignFunction`` (the kernel forward, the
-   adjoint GEMMs backward) against autograd through the plain gather
+5. The RoIAlign gradient: ``RoIAlignFunction`` (the forward kernel, the
+   adjoint kernel backward) against autograd through the plain gather
    version, on the card, with respect to all four maps of the 832x1344
-   pyramid (C=256, batch 8) for the main path's boxes, the edge/overflow
-   boxes and the map-edge boxes: float32 within rtol 1e-3 / atol 1e-4 (the
-   JAX suite's tolerance for this gradient); bfloat16 maps and cotangent
-   against the float32 reference within ``2^-8 * (|ref| + A|g|)`` per
-   element, where ``A|g|`` is the adjoint of the cotangent's magnitude (the
-   cotangent's rounding, 2^-9 relative, plus the result's, with a factor 2
-   to spare).  Then the adjoint alone on the main path's inputs (bf16): its
-   eager time and its device time (CUDA events, the call queued behind a
-   device sleep), beside its byte bound and its GEMM-operation bound, and
-   the launches one call issues (torch.profiler's host-side launch calls).
+   pyramid (batch 8) for the main path's boxes at C = 256, 136 (a ragged
+   last channel slice) and 64; phase 2's edge/overflow, 28x28-grid,
+   map-edge, padding-only, B=1 N=1 and 600-random-box (C=64) cases; 100
+   boxes an image piled on one tile of P2; and the portrait 1344x832
+   pyramid: float32 within rtol 1e-3 / atol 1e-4 (the JAX suite's tolerance
+   for this gradient); bfloat16 maps and cotangent against the float32
+   reference within ``2^-8 * (|ref| + A|g|)`` per element, where ``A|g|``
+   is the adjoint of the cotangent's magnitude (the cotangent's rounding,
+   2^-9 relative, plus the result's, with a factor 2 to spare); the kernel
+   against ``roi_align_adjoint`` (the GEMM route) on the same inputs within
+   rtol = atol = 1e-5 in float32; two calls bit for bit.  Then the kernel
+   alone on the main path's inputs (bf16): cold and warm L2 in CUDA graphs,
+   queued behind a device sleep, eager, its launches a call, against its
+   byte bound; the GEMM route's device time and launches on the same inputs
+   (the library yardstick) and autograd's backward through the plain
+   version.
 6. The float32 train step on the card against the same step on the CPU
    (64x96, batch 2; TF32 off; the same seeded weights, batch and Gumbel
    noise): the three losses within rtol 1e-5, every gradient within
@@ -50,8 +56,8 @@ Phases, each reporting on its own lines; any failure exits non-zero:
    width, 832x1344, batch 8, ``frozen_stages=1``, three losses, two-group
    AdamW at the reference lr; one warm-up step, then ``TRAIN_STEPS`` timed
    steps with the counts set to 0 just before.  It checks that every loss
-   is finite and every step applied, that the kernel and its adjoint ran
-   once per step, that the stem and ``layer1`` are bit-for-bit unchanged and
+   is finite and every step applied, that the kernel and its adjoint kernel
+   ran once per step, that the stem and ``layer1`` are bit-for-bit unchanged and
    that both optimizer groups moved; prints per-step ms, train img/s, peak
    memory, the losses, and what the NaN guard's host read costs.
    ``--profile`` adds one traced train step (device busy and idle share, top
@@ -63,7 +69,8 @@ Phases, each reporting on its own lines; any failure exits non-zero:
    8, 2 epochs with validation on the portrait split, 4 loader workers, with
    the counts set to 0 just before: it checks two ``Epoch:`` lines, finite
    losses, ``ckpt_01.pt`` and ``ckpt_02.pt``, one kernel launch per train
-   step and per validation batch and one adjoint per train step; resumes
+   step and per validation batch and one adjoint kernel launch per train
+   step; resumes
    from ``ckpt_01.pt`` (epoch, applied steps, lr, parameters and AdamW
    moments equal to the file) and traces one more epoch (the device's idle
    share); runs ``tools.test_hicodet.main`` with ``ckpt_02.pt`` (full, rare
@@ -112,7 +119,8 @@ Phases, each reporting on its own lines; any failure exits non-zero:
     NCCL; each is held against the same worker started plainly (losses
     and parameters at rtol ``DDP_TOL``; both workers take cuDNN's and
     PyTorch's deterministic kernels), with the step ms of each, the HOI
-    step's all-reduce timed alone, and the kernel's launches.  Parity across two ranks is the CPU test's
+    step's all-reduce timed alone, and the launches of the kernel and of its
+    adjoint (one a step).  Parity across two ranks is the CPU test's
     (``tests/test_torch_port_ddp.py``): the smoke has one card.
 12. Stage-1 detection at full width: a seeded random torchvision-layout
     ``fasterrcnn_resnet50_fpn`` ``state_dict`` (91 classes) saved as a
@@ -193,10 +201,10 @@ Phases, each reporting on its own lines; any failure exits non-zero:
     ``ckpt_02.pt``, ``text_label``).  Without matplotlib the overlays and
     plots are left out and ``"matplotlib": false`` is printed.
 
-It prints the adjoint's, the train step's, the CLI path's, the KGE, the
-V-COCO/TransH, the data-parallel, the detection, the detectors' and the
-tools' JSON lines, the kernels' JSON line, the card, then ``{"ok": true,
-"device": ...}`` last.  Without a
+It prints the train step's, the CLI path's, the KGE, the V-COCO/TransH, the
+data-parallel, the detection, the detectors' and the tools' JSON lines, the
+kernels' JSON line (the forward kernel and its adjoint), the card, then
+``{"ok": true, "device": ...}`` last.  Without a
 CUDA device it exits with code 2 and prints no result.
 """
 
@@ -602,83 +610,205 @@ def _map_grads(fn, maps, cot):
 
 def adjoint_bounds(shapes, n_boxes, elem):
     """Least time for the adjoint: (bytes ms, GEMM-operation ms, bytes, ops).
-    Bytes: the cotangent and boxes read once, the four map gradients written
-    once.  Operations: the two GEMMs of each level as they are formulated
-    (every box at every level, the other levels' boxes masked to zero), at
-    the float32 rate outside the tensor cores (TF32 is off)."""
+    Bytes: the cotangent, boxes and levels read once, the four map gradients
+    written once.  Operations: the two GEMMs of each level as the plain
+    version formulates them (every box at every level, the other levels'
+    boxes masked to zero), at the float32 rate outside the tensor cores (TF32
+    is off)."""
     bsz, c = shapes[0][0], shapes[0][3]
     n_bytes = (bsz * n_boxes * 49 * c + sum(b * h * w * c for b, h, w, _ in shapes)) * elem
-    n_bytes += bsz * n_boxes * 16
+    n_bytes += bsz * n_boxes * (16 + 4)
     ops = sum(2 * bsz * n_boxes * 7 * w * 7 * c + 2 * bsz * h * w * c * 7 * n_boxes
               for _, h, w, _ in shapes)
     return n_bytes / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOPS_PER_S * 1e3, n_bytes, ops
 
 
-def phase_adjoint(main_boxes):
-    """The kernel's autograd node against autograd through the plain version,
-    then the adjoint alone timed against its bounds."""
-    from torch.profiler import ProfilerActivity, profile
+def adjoint_kernel_ops(shapes, boxes):
+    """Operations the adjoint needs on these boxes: for each box on its
+    level, a multiply-add for every nonzero (bin, row) weight times every
+    nonzero (bin, column) weight, for each channel."""
+    from skghoi_torch.ops.roi_align import fpn_level_assignment, level_axis_weights
 
+    levels = fpn_level_assignment(boxes)
+    pairs = 0
+    for l, ((_, h, w, _), stride) in enumerate(zip(shapes, (4, 8, 16, 32))):
+        x1, y1 = boxes[..., 0] / stride, boxes[..., 1] / stride
+        roi_w = (boxes[..., 2] / stride - x1).clamp_min(1.0)
+        roi_h = (boxes[..., 3] / stride - y1).clamp_min(1.0)
+        ny = (level_axis_weights(y1, roi_h, h, h) != 0).sum((-1, -2))
+        nx = (level_axis_weights(x1, roi_w, w, w) != 0).sum((-1, -2))
+        pairs += int((ny * nx * (levels == l)).sum())
+    return 2 * pairs * shapes[0][3]
+
+
+def adjoint_cases(main_boxes):
+    """(name, canvas, C, [B, N, 4] boxes) on which phase 5 holds the adjoint:
+    phase 2's cases (600 random boxes an image at C=64), the main path's boxes
+    at C=136 (a ragged last channel slice) and 64, ``pile`` (100 boxes an
+    image inside one 8x8-cell tile of P2, duplicates among them), and the
+    portrait pyramid."""
+    dev = main_boxes.device
+    cases = {name: boxes for name, _, boxes in kernel_cases(main_boxes)}
+    g = torch.Generator(device=dev).manual_seed(3)
+    xy = 416.0 + torch.rand(BATCH, 100, 2, generator=g, device=dev) * 10.0  # P2 cells 104-111
+    pile = torch.cat([xy, xy + 1.0 + torch.rand(BATCH, 100, 2, generator=g, device=dev) * 14.0], -1)
+    pile[:, 50:] = pile[:, :50]
+    swap = [1, 0, 3, 2]
+    return ([("main", CANVAS, 256, main_boxes), ("main", CANVAS, 136, main_boxes),
+             ("main", CANVAS, 64, main_boxes)]
+            + [(name, CANVAS, 64 if name == "many" else 256, cases[name])
+               for name in ("edge", "grid28", "map_edges", "padding", "b1n1", "many")]
+            + [("pile", CANVAS, 256, pile),
+               ("main_portrait", PORTRAIT, 256, main_boxes[..., swap].contiguous()),
+               ("map_edges_portrait", PORTRAIT, 256, cases["map_edges"][..., swap].contiguous())])
+
+
+def check_adjoint(main_boxes):
+    """``RoIAlignFunction``'s map gradients (the adjoint kernel) against
+    autograd through the plain gather version on every case of
+    :func:`adjoint_cases`, float32 and bfloat16; the kernel against
+    ``roi_align_adjoint`` on the same inputs; and two calls bit for bit.
+    Returns the largest errors."""
     from skghoi_torch.ops.roi_align import multiscale_roi_align, roi_align_adjoint
     from skghoi_torch.ops.roi_align_cuda import RoIAlignFunction
 
     g = torch.Generator(device="cuda").manual_seed(7)
-    maps32 = [torch.randn(BATCH, CANVAS[0] // s, CANVAS[1] // s, 256, device="cuda", generator=g)
-              for s in (4, 8, 16, 32)]
-    maps16 = [m.bfloat16() for m in maps32]
-    cases = [("main", main_boxes), ("edge", torch.tensor([EDGE_BOXES] * BATCH, device="cuda")),
-             ("map_edges", torch.tensor([MAP_EDGE_BOXES] * BATCH, device="cuda"))]
     errs = {}
-    for name, boxes in cases:
-        cot = torch.randn(*boxes.shape[:2], 7, 7, 256, device="cuda", generator=g)
+    for name, canvas, c, boxes in adjoint_cases(main_boxes):
+        bsz = boxes.shape[0]
+        maps32 = [torch.randn(bsz, canvas[0] // s, canvas[1] // s, c, device="cuda", generator=g)
+                  for s in (4, 8, 16, 32)]
+        maps16 = [m.bfloat16() for m in maps32]
+        cot = torch.randn(*boxes.shape[:2], 7, 7, c, device="cuda", generator=g)
         plain = lambda m: multiscale_roi_align(m, boxes)  # noqa: E731
         node = lambda m: RoIAlignFunction.apply(boxes, *m)  # noqa: E731
         ref = _map_grads(plain, maps32, cot)
         ref_abs = _map_grads(plain, maps32, cot.abs())
-        got32 = _map_grads(node, maps32, cot)
-        got16 = _map_grads(node, maps16, cot.bfloat16())
-        for l, (r, ra, a, b) in enumerate(zip(ref, ref_abs, got32, got16)):
+        got32, got16 = _map_grads(node, maps32, cot), _map_grads(node, maps16, cot.bfloat16())
+        same = all(torch.equal(a, b) for a, b in zip(got32 + got16, _map_grads(node, maps32, cot)
+                                                      + _map_grads(node, maps16, cot.bfloat16())))
+        shapes = [tuple(m.shape) for m in maps32]
+        gemm32 = roi_align_adjoint(shapes, torch.float32, boxes, cot)
+        gemm16 = roi_align_adjoint(shapes, torch.bfloat16, boxes, cot.bfloat16())
+        tag = f"{name} C={c} {canvas[0]}x{canvas[1]} boxes {tuple(boxes.shape)}"
+        for l, (r, ra, a, b, p32, p16) in enumerate(zip(ref, ref_abs, got32, got16, gemm32, gemm16)):
             if a.dtype != torch.float32 or b.dtype != torch.bfloat16 or a.shape != r.shape:
-                raise AssertionError(f"adjoint {name} level {l}: {a.dtype} {b.dtype} {tuple(a.shape)}")
+                raise AssertionError(f"adjoint {tag} level {l}: {a.dtype} {b.dtype} {tuple(a.shape)}")
             ok32 = torch.allclose(a, r, **ADJOINT_TOL)
             excess = ((b.float() - r).abs() - 2.0 ** -8 * (r.abs() + ra)).max().item()
-            errs[(name, l)] = ((a - r).abs().max().item(), (b.float() - r).abs().max().item())
-            log(f"[adjoint] {name} boxes {tuple(boxes.shape)} P{l + 2}: fp32 max|node-plain| "
-                f"{errs[(name, l)][0]:.3e} (rtol 1e-3, atol 1e-4) {'ok' if ok32 else 'FAIL'}; "
-                f"bf16 max|node-plain fp32| {errs[(name, l)][1]:.3e}, largest excess over "
-                f"2^-8 (|ref| + A|g|) {excess:.3e} {'ok' if excess <= 0 else 'FAIL'}; "
-                f"max|ref| {r.abs().max().item():.3e}")
-            if not ok32 or excess > 0:
-                raise AssertionError(f"RoIAlign gradient disagrees with the plain version "
-                                     f"({name}, level {l})")
-    if not any(r.abs().max() > 0 for r in ref):
-        raise AssertionError("adjoint: the reference gradient is 0; the check would be vacuous")
+            direct = torch.allclose(a, p32, rtol=FP32_TOL, atol=FP32_TOL)
+            e = dict(fp32=(a - r).abs().max().item(), bf16=(b.float() - r).abs().max().item(),
+                     direct_fp32=(a - p32).abs().max().item(),
+                     direct_bf16=(b.float() - p16.float()).abs().max().item())
+            errs[(name, c, canvas, l)] = e
+            log(f"[adjoint] {tag} P{l + 2}: fp32 max|kernel-plain| {e['fp32']:.3e} (rtol 1e-3, "
+                f"atol 1e-4) {'ok' if ok32 else 'FAIL'}; bf16 max|kernel-plain fp32| "
+                f"{e['bf16']:.3e}, largest excess over 2^-8 (|ref| + A|g|) {excess:.3e} "
+                f"{'ok' if excess <= 0 else 'FAIL'}; against roi_align_adjoint fp32 "
+                f"{e['direct_fp32']:.3e} (rtol=atol={FP32_TOL:g}) {'ok' if direct else 'FAIL'}, "
+                f"bf16 {e['direct_bf16']:.3e}; max|ref| {r.abs().max().item():.3e}")
+            if not ok32 or excess > 0 or not direct:
+                raise AssertionError(f"RoIAlign adjoint kernel disagrees with the plain version "
+                                     f"({tag}, level {l})")
+        log(f"[adjoint] {tag}: two calls bit for bit {'equal' if same else 'DIFFERENT'}")
+        if not same:
+            raise AssertionError(f"RoIAlign adjoint kernel is not deterministic ({tag})")
+        if name == "main" and c == 256 and not any(r.abs().max() > 0 for r in ref):
+            raise AssertionError("adjoint: the reference gradient is 0; the check would be vacuous")
+        del maps32, maps16, ref, ref_abs, got32, got16, gemm32, gemm16
+    main = [e for (n, c, cv, _), e in errs.items() if (n, c, cv) == ("main", 256, CANVAS)]
+    log(f"[adjoint] all {len(errs)} (case, level) pairs agree; largest fp32 error against autograd "
+        f"{max(e['fp32'] for e in errs.values()):.3e}, against roi_align_adjoint "
+        f"{max(e['direct_fp32'] for e in errs.values()):.3e}")
+    return dict(max_abs_err=max(e["direct_bf16"] for e in main),
+                max_abs_err_fp32=max(e["direct_fp32"] for e in errs.values()),
+                max_abs_err_autograd_fp32=max(e["fp32"] for e in errs.values()),
+                max_abs_err_autograd_bf16=max(e["bf16"] for e in errs.values()))
 
-    shapes = [tuple(m.shape) for m in maps16]
-    cot = torch.randn(*main_boxes.shape[:2], 7, 7, 256, device="cuda", generator=g).bfloat16()
-    run = lambda: roi_align_adjoint(shapes, torch.bfloat16, main_boxes, cot)  # noqa: E731
-    ms = cuda_ms(run, iters=20)
-    device_ms = queued_ms(run, reps=5)
+
+def _launches_per_call(fn):
+    """Device launches one call of ``fn`` issues (torch.profiler's host-side
+    launch calls)."""
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
+        fn()
         torch.cuda.synchronize()
-    launches = sum(e.count for e in prof.key_averages() if e.key in LAUNCH_CALLS)
-    bytes_ms, ops_ms, n_bytes, ops = adjoint_bounds(shapes, main_boxes.shape[1], 2)
-    log(f"[adjoint] bf16 B={BATCH} N={main_boxes.shape[1]} C=256 832x1344 pyramid: "
-        f"{ms:.4f} ms a call (eager, CUDA events), {device_ms:.4f} ms of device time (queued "
-        f"behind a sleep, so host launches are hidden), {launches} device launches a call; "
-        f"byte bound {bytes_ms:.4f} ms ({n_bytes / 1e6:.1f} MB), GEMM-operation bound "
-        f"{ops_ms:.4f} ms ({ops / 1e9:.1f} GFLOP at the fp32 rate): device time at "
-        f"{bytes_ms / device_ms:.1%} of the byte bound, {ops_ms / device_ms:.1%} of the "
-        f"operation bound")
+    return sum(e.count for e in prof.key_averages() if e.key in LAUNCH_CALLS), prof
+
+
+def time_adjoint(main_boxes):
+    """The adjoint kernel alone on the main path's inputs (bf16, C=256,
+    832x1344, batch 8): cold L2 (calls rotate over three copies of the
+    cotangent and gradients, as phase 2 does), warm, both in a CUDA graph;
+    queued behind a device sleep; eager.  Beside it the GEMM route
+    (``roi_align_adjoint``, cuBLAS) and autograd's backward through the plain
+    gather version, on the same inputs."""
+    from skghoi_torch.ops.roi_align import (fpn_level_assignment, multiscale_roi_align,
+                                            roi_align_adjoint)
+    from skghoi_torch.ops.roi_align_cuda import roi_align_cuda
+
+    g = torch.Generator(device="cuda").manual_seed(8)
+    shapes = [(BATCH, CANVAS[0] // s, CANVAS[1] // s, 256) for s in (4, 8, 16, 32)]
+    levels = fpn_level_assignment(main_boxes).contiguous()
+    cot = torch.randn(*main_boxes.shape[:2], 7, 7, 256, device="cuda", generator=g).bfloat16()
+    copies = [([torch.empty(s, dtype=torch.bfloat16, device="cuda") for s in shapes],
+               cot if i == 0 else cot.clone()) for i in range(3)]
+    grads = copies[0][0]
+
+    def call(grads, cot):
+        return lambda: roi_align_cuda.adjoint(grads, main_boxes, levels, cot)
+
+    cold_ms = graph_ms([call(*copies[i % 3]) for i in range(30)], iters=20)
+    warm_ms = graph_ms([call(grads, cot)] * 20, iters=20)
+    device_ms = queued_ms(call(grads, cot), reps=5)
+    eager_ms = cuda_ms(call(grads, cot), iters=50)
+    launches, _ = _launches_per_call(call(grads, cot))
+    del copies
+
+    gemm = lambda: roi_align_adjoint(shapes, torch.bfloat16, main_boxes, cot)  # noqa: E731
+    gemm_device_ms = queued_ms(gemm, reps=5)
+    gemm_eager_ms = cuda_ms(gemm, iters=20)
+    gemm_launches, prof = _launches_per_call(gemm)
     log(prof.key_averages().table(sort_by="self_device_time_total", row_limit=8))
-    return dict(name="roi_align_adjoint", route="torch (cuBLAS GEMMs)",
-                source="skghoi_torch/ops/roi_align.py::roi_align_adjoint",
-                replaces="skghoi_tpu/ops/pallas_roi_align.py:222-265", ms=ms,
-                device_ms=device_ms, launches_per_call=launches, bytes_bound_ms=bytes_ms,
-                ops_bound_ms=ops_ms,
-                max_abs_err_fp32=max(e[0] for e in errs.values()),
-                max_abs_err_bf16=max(e[1] for e in errs.values()))
+
+    leaves = [torch.randn(s, device="cuda", generator=g).bfloat16().requires_grad_(True)
+              for s in shapes]
+    out = multiscale_roi_align(leaves, main_boxes)
+    plain_ms = cuda_ms(lambda: torch.autograd.grad(out, leaves, cot, retain_graph=True), iters=5,
+                       warmup=1)
+    del out, leaves
+
+    bytes_ms, gemm_ops_ms, n_bytes, gemm_ops = adjoint_bounds(shapes, main_boxes.shape[1], 2)
+    ops = adjoint_kernel_ops(shapes, main_boxes)
+    ops_ms = ops / FP32_FLOPS_PER_S * 1e3
+    bound_ms, bound_by = max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+    log(f"[adjoint] kernel bf16 B={BATCH} N={main_boxes.shape[1]} C=256 {CANVAS[0]}x{CANVAS[1]} "
+        f"pyramid: alone, cold L2 {cold_ms:.5f} ms (3 copies), warm L2 {warm_ms:.5f} ms, both "
+        f"CUDA graph; queued behind a sleep {device_ms:.5f} ms; eager {eager_ms:.5f} ms; "
+        f"{launches} device launches a call; bound {bound_ms:.5f} ms by {bound_by} "
+        f"({n_bytes / 1e6:.1f} MB; {ops / 1e6:.1f} MFLOP of multiply-adds, {ops_ms:.5f} ms): cold "
+        f"time at {bound_ms / cold_ms:.1%} of the bound, queued {bound_ms / device_ms:.1%}")
+    log(f"[adjoint] GEMM route (roi_align_adjoint, cuBLAS), same inputs: {gemm_device_ms:.4f} ms "
+        f"of device time (queued behind a sleep), {gemm_eager_ms:.4f} ms a call eager, "
+        f"{gemm_launches} device launches a call, {gemm_ops / 1e9:.1f} GFLOP (bound "
+        f"{gemm_ops_ms:.4f} ms at the fp32 rate); the kernel's queued time is "
+        f"{device_ms / gemm_device_ms:.1%} of it. Autograd through the plain gather version, "
+        f"backward alone: {plain_ms:.4f} ms a call")
+    return dict(ms=cold_ms, cold_ms=cold_ms, warm_ms=warm_ms, device_ms=device_ms,
+                eager_ms=eager_ms, launches_per_call=launches, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, bytes_bound_ms=bytes_ms,
+                bound_share=bound_ms / cold_ms, library_ms=gemm_device_ms,
+                library="roi_align_adjoint: batched torch.matmul (cuBLAS), the GEMM route",
+                library_eager_ms=gemm_eager_ms, library_launches_per_call=gemm_launches,
+                library_ops_bound_ms=gemm_ops_ms)
+
+
+def phase_adjoint(main_boxes):
+    """Phase 5: the adjoint kernel against its plain versions, then timed."""
+    return dict(name="roi_align_adjoint", route="cuda", source="skghoi_torch/csrc/roi_align.cu",
+                replaces="skghoi_tpu/ops/pallas_roi_align.py:222", **check_adjoint(main_boxes),
+                **time_adjoint(main_boxes))
 
 
 def phase_train_parity():
@@ -733,7 +863,7 @@ def phase_train(profile_dir):
     step(batch, generator)  # warm-up: cuDNN plans, allocator, lazy AdamW state
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    roi_align_cuda.launches = 0
+    roi_align_cuda.launches = roi_align_cuda.adjoint_launches = 0
     RoIAlignFunction.backward_calls = 0
     times, rows = [], []
     for _ in range(TRAIN_STEPS):
@@ -743,13 +873,14 @@ def phase_train(profile_dir):
         times.append(time.perf_counter() - t0)
         rows.append((applied, {k: float(v) for k, v in losses.items()}))
     launches, adjoints = roi_align_cuda.launches, RoIAlignFunction.backward_calls
+    adjoint_launches = roi_align_cuda.adjoint_launches
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
     if not all(a for a, _ in rows) or not all(math.isfinite(v) for _, l in rows for v in l.values()):
         raise AssertionError(f"train: a step was skipped or a loss is not finite: {rows}")
-    if launches != TRAIN_STEPS or adjoints != TRAIN_STEPS:
-        raise AssertionError(f"train: {launches} kernel launches and {adjoints} adjoints in "
-                             f"{TRAIN_STEPS} steps")
+    if launches != TRAIN_STEPS or adjoints != TRAIN_STEPS or adjoint_launches != TRAIN_STEPS:
+        raise AssertionError(f"train: {launches} kernel launches, {adjoints} adjoints and "
+                             f"{adjoint_launches} adjoint kernel launches in {TRAIN_STEPS} steps")
     for n, p in model.named_parameters():
         if n in frozen and not torch.equal(p, frozen[n]):
             raise AssertionError(f"train: frozen parameter {n} changed")
@@ -762,7 +893,8 @@ def phase_train(profile_dir):
         f"{[g['lr'] for g in opt.param_groups]}: {TRAIN_STEPS} steps, per step ms "
         f"{[round(t * 1e3, 3) for t in times]}, {BATCH * TRAIN_STEPS / sum(times):.2f} train img/s "
         f"(median {BATCH / median:.2f}), peak memory {peak_gib:.2f} GiB, roi_align launches "
-        f"{launches}, adjoints {adjoints}, n_h {out.n_h.tolist()} n {out.n.tolist()}")
+        f"{launches}, adjoints {adjoints} (adjoint kernel launches {adjoint_launches}), n_h "
+        f"{out.n_h.tolist()} n {out.n.tolist()}")
     for i, (_, l) in enumerate(rows):
         log(f"[train] step {i + 1} losses {l}")
     log(f"[train] frozen stem + layer1 ({len(frozen)} tensors) unchanged; both groups moved; "
@@ -781,7 +913,8 @@ def phase_train(profile_dir):
         f"time it causes), device {update_ms:.3f} ms (CUDA events)")
     result = dict(step_ms=[t * 1e3 for t in times], img_per_s=BATCH * TRAIN_STEPS / sum(times),
                   median_img_per_s=BATCH / median, peak_gib=peak_gib, launches=launches,
-                  adjoints=adjoints, guard_issue_ms=issue_ms, update_ms=update_ms)
+                  adjoints=adjoints, adjoint_launches=adjoint_launches, guard_issue_ms=issue_ms,
+                  update_ms=update_ms)
     if profile_dir:
         result.update(profile_train_step(step, batch, generator, profile_dir, median))
     return result
@@ -1001,13 +1134,14 @@ def phase_cli():
 
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        roi_align_cuda.launches = 0
+        roi_align_cuda.launches = roi_align_cuda.adjoint_launches = 0
         RoIAlignFunction.backward_calls = 0
         t0 = time.perf_counter()
         engine, text = run_cli(train_hicodet.main, train_argv)
         train_s = time.perf_counter() - t0
         keep_text("train_hicodet.log", text)
         launches, adjoints = roi_align_cuda.launches, RoIAlignFunction.backward_calls
+        adjoint_launches = roi_align_cuda.adjoint_launches
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
         steps_per_epoch = CLI_TRAIN_IMAGES // BATCH
@@ -1022,9 +1156,10 @@ def phase_cli():
         for name in ("ckpt_01.pt", "ckpt_02.pt"):
             if not os.path.exists(os.path.join(ckpts, name)):
                 raise AssertionError(f"cli: {name} was not written")
-        if launches != steps + val_batches or adjoints != steps:
-            raise AssertionError(f"cli: {launches} kernel launches and {adjoints} adjoints for "
-                                 f"{steps} train steps and {val_batches} validation batches")
+        if launches != steps + val_batches or adjoints != steps or adjoint_launches != steps:
+            raise AssertionError(f"cli: {launches} kernel launches, {adjoints} adjoints and "
+                                 f"{adjoint_launches} adjoint kernel launches for {steps} train "
+                                 f"steps and {val_batches} validation batches")
         ends = engine.iteration_ends
         # Loader-inclusive steps after the first of each epoch (the first
         # step of epoch 2 also waits out validation and the checkpoint).
@@ -1037,7 +1172,7 @@ def phase_cli():
             f"steps after the first of each epoch {[round(g * 1e3, 3) for g in gaps]} ms, "
             f"{train_img_s:.2f} train img/s with the loader; peak memory {peak_gib:.2f} GiB; "
             f"roi_align launches {launches} ({steps} steps + {val_batches} validation batches), "
-            f"adjoints {adjoints}")
+            f"adjoints {adjoints} (adjoint kernel launches {adjoint_launches})")
         for line in epochs:
             log(f"[cli] {line}")
 
@@ -1119,7 +1254,7 @@ def phase_cli():
         preprocess_err = check_device_preprocess(root)
         host = time_host_pipeline(root)
 
-        roi_align_cuda.launches = 0
+        roi_align_cuda.launches = roi_align_cuda.adjoint_launches = 0
         RoIAlignFunction.backward_calls = 0
         dr_engine, text = run_cli(train_hicodet.main, [
             "--partitions", "train2015", "--num-epochs", "1", "--device-resize",
@@ -1131,11 +1266,14 @@ def phase_cli():
         if (len(re.findall(r"^Epoch: ", text, re.M)) != 1 or len(dr_losses) != 3 * steps_per_epoch
                 or not all(math.isfinite(v) for v in dr_losses)
                 or roi_align_cuda.launches != steps_per_epoch
-                or RoIAlignFunction.backward_calls != steps_per_epoch):
+                or RoIAlignFunction.backward_calls != steps_per_epoch
+                or roi_align_cuda.adjoint_launches != steps_per_epoch):
             raise AssertionError(f"cli --device-resize: losses {dr_losses}, launches "
-                                 f"{roi_align_cuda.launches}")
+                                 f"{roi_align_cuda.launches}, adjoint kernel launches "
+                                 f"{roi_align_cuda.adjoint_launches}")
         log(f"[cli] --device-resize epoch: {steps_per_epoch} steps, losses finite, roi_align "
-            f"launches {roi_align_cuda.launches}, adjoints {RoIAlignFunction.backward_calls}; "
+            f"launches {roi_align_cuda.launches}, adjoints {RoIAlignFunction.backward_calls} "
+            f"(adjoint kernel launches {roi_align_cuda.adjoint_launches}); "
             f"steps after the first {[round(g * 1e3, 3) for g in dr_gaps]} ms with the loader")
         keep("hico", *[os.path.join(root, n) for n in (
             "hico_20160224_det", "instances_train2015.json", "instances_test2015.json",
@@ -1148,7 +1286,7 @@ def phase_cli():
                 traced_epoch_ms=epoch_s * 1e3, device_busy_ms=busy_ms, peak_gib=peak_gib,
                 step_alone_ms=step_ms, checkpoint_ms=save_ms,
                 train_steps=steps, val_batches=val_batches, launches=launches,
-                adjoints=adjoints, test_launches=test_launches,
+                adjoints=adjoints, adjoint_launches=adjoint_launches, test_launches=test_launches,
                 map=dict(zip(("full", "rare", "non_rare"), maps)),
                 device_preprocess_max_err=preprocess_err, host_pipeline=host,
                 device_resize_step_ms=[g * 1e3 for g in dr_gaps])
@@ -1567,7 +1705,7 @@ def ddp_worker(kind: str, out_path: str, argv) -> int:
         warnings.simplefilter("always")
         out = _ddp_run(kind, argv)
     out.update(backend=backend, world=distributed.world_size(), launches=roi_align_cuda.launches,
-               device=str(device),
+               adjoint_launches=roi_align_cuda.adjoint_launches, device=str(device),
                nondeterministic=sorted({str(w.message)[:120] for w in seen
                                         if "deterministic" in str(w.message)}))
     distributed.shutdown()
@@ -1665,7 +1803,10 @@ def phase_ddp():
             entry = dict(losses_plain=plain["losses"], losses_nccl=dp["losses"], loss_rel=loss_rel,
                          param_rel=param_rel, step_ms_plain=plain["step_ms"],
                          step_ms_nccl=dp["step_ms"], launches_plain=plain["launches"],
-                         launches_nccl=dp["launches"], process_s_plain=plain["process_s"],
+                         launches_nccl=dp["launches"],
+                         adjoint_launches_plain=plain["adjoint_launches"],
+                         adjoint_launches_nccl=dp["adjoint_launches"],
+                         process_s_plain=plain["process_s"],
                          process_s_nccl=dp["process_s"])
             if kind == "hoi":
                 entry.update(all_reduce_ms=dp["all_reduce_ms"],
@@ -1677,14 +1818,19 @@ def phase_ddp():
                 f"process: {len(got)} losses, max rel diff {loss_rel:.3e}, parameters max rel diff "
                 f"{param_rel:.3e} ({worst}) (rtol {DDP_TOL:g}) {'ok' if ok else 'FAIL'}; step ms plain "
                 f"{[round(x, 3) for x in plain['step_ms']]} NCCL {[round(x, 3) for x in dp['step_ms']]}; "
-                f"roi_align launches plain {plain['launches']} NCCL {dp['launches']}; ops without a "
+                f"roi_align launches plain {plain['launches']} NCCL {dp['launches']}, adjoint "
+                f"kernel launches plain {plain['adjoint_launches']} NCCL {dp['adjoint_launches']}; "
+                f"ops without a "
                 f"deterministic kernel {plain['nondeterministic']}; two-rank "
                 f"parity is the CPU test's (tests/test_torch_port_ddp.py): this smoke has one card")
             if not ok:
                 raise AssertionError(f"ddp {kind}: the NCCL run differs from the plain run")
-            if kind == "hoi" and not (dp["launches"] == plain["launches"] == len(got) // 3):
-                raise AssertionError(f"ddp hoi: roi_align launches {plain['launches']}/{dp['launches']} "
-                                     f"for {len(got) // 3} steps")
+            steps = len(got) // 3
+            if kind == "hoi" and not (dp["launches"] == plain["launches"] == steps
+                                      == dp["adjoint_launches"] == plain["adjoint_launches"]):
+                raise AssertionError(f"ddp hoi: roi_align launches {plain['launches']}/{dp['launches']}, "
+                                     f"adjoint kernel launches {plain['adjoint_launches']}/"
+                                     f"{dp['adjoint_launches']} for {steps} steps")
             out[kind] = entry
     return out
 
@@ -3142,17 +3288,18 @@ def run_phases(args) -> int:
     phase_train_parity()
     train = phase_train(args.profile)
     kernel["launches_train"] = train["launches"]
-    adjoint["calls_train"] = train["adjoints"]
+    adjoint["launches"] = train["adjoint_launches"]  # the training main path's
     cli = phase_cli()
     kernel["launches_cli"] = cli["launches"]
     kernel["launches_cli_test"] = cli["test_launches"]
-    adjoint["calls_cli"] = cli["adjoints"]
+    adjoint["launches_cli"] = cli["adjoint_launches"]
     kge = phase_kge()
     hoi = phase_vcoco_transh()
     kernel["launches_cli_vcoco"] = hoi["vcoco"]["launches"]
     kernel["launches_cli_transh"] = hoi["transh_init"]["launches"]
     ddp = phase_ddp()
     kernel["launches_ddp"] = ddp["hoi"]["launches_nccl"]
+    adjoint["launches_ddp"] = ddp["hoi"]["adjoint_launches_nccl"]
     detect = phase_detect()
     landscape = next(v for k, v in detect["canvases"].items() if k.startswith("landscape"))
     kernel["launches_frcnn"] = detect["launches"]
@@ -3170,7 +3317,6 @@ def run_phases(args) -> int:
     kernel["launches_perf_report"] = tools["perf_report_launches"]
 
     log(f"[card] {card}")
-    print(json.dumps({"library_ops": [adjoint]}))
     print(json.dumps({"train": train}))
     print(json.dumps({"cli": cli}))
     print(json.dumps({"kge": kge}))
@@ -3179,7 +3325,7 @@ def run_phases(args) -> int:
     print(json.dumps({"detect": detect}))
     print(json.dumps({"detectors": stage1}))
     print(json.dumps({"tools": tools}))
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": [kernel, adjoint]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

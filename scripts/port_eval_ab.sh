@@ -7,8 +7,10 @@
 # OTHER_CHECKOUT, this checkout, this checkout, OTHER_CHECKOUT, each in a
 # fresh process, and prints each run's per-request times, img/s, profile and
 # stage times, then its TRAIN_STEPS (default 5) per-step times and train
-# img/s.  OTHER_CHECKOUT is e.g. `git archive` of the parent unpacked into a
-# directory that .gitignore lists.
+# img/s, then one traced train step after three untimed ones ([ab-trace]:
+# its wall ms, device busy ms and ops, idle share, and the host's CUDA
+# runtime calls by time).  OTHER_CHECKOUT is e.g. `git archive` of the
+# parent unpacked into a directory that .gitignore lists.
 set -euo pipefail
 other=$(cd "$1" && pwd)
 here=$(cd "$(dirname "$0")/.." && pwd)
@@ -32,6 +34,32 @@ print(f"[ab] {os.getcwd()}", flush=True)
 chip_smoke.phase_main(int(os.environ["REQUESTS"]), os.path.join(os.getcwd(), "_ab_profile"))
 chip_smoke.TRAIN_STEPS = int(os.environ["TRAIN_STEPS"])
 chip_smoke.phase_train(None)
+
+import time  # noqa: E402
+
+from torch.autograd import DeviceType  # noqa: E402
+from torch.profiler import ProfilerActivity, profile  # noqa: E402
+
+from skghoi_torch.entry import train_entry  # noqa: E402
+
+step, (batch, generator) = train_entry(device="cuda")
+for _ in range(3):
+    step(batch, generator)
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    step(batch, generator)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+events = prof.key_averages()
+device = chip_smoke.device_events(events)
+busy_ms = sum(e.self_device_time_total for e in device) / 1e3
+runtime = sorted(((e.self_cpu_time_total / 1e3, e.count, e.key) for e in events
+                  if e.device_type == DeviceType.CPU and e.key.startswith("cuda")), reverse=True)
+print(f"[ab-trace] one traced bf16 train step: {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms in "
+      f"{sum(e.count for e in device)} device ops, idle {max(0.0, 1 - busy_ms / wall_ms):.1%}; "
+      f"host CUDA runtime calls (ms, count): "
+      f"{[(k, round(ms, 3), n) for ms, n, k in runtime[:8]]}", flush=True)
 PY
   )
 }

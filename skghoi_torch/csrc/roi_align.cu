@@ -1,15 +1,27 @@
-// Multi-scale RoIAlign forward for Hopper (sm_90a), NHWC feature maps.
+// Multi-scale RoIAlign for Hopper (sm_90a), NHWC feature maps: the forward
+// and its adjoint (the gradient of the maps), in one translation unit so that
+// both take their sample cells and weights from the same device functions
+// (axis_sample, rank_axis) and agree at exact cell boundaries.
 //
-// Replaces the Pallas TPU kernel skghoi_tpu/ops/pallas_roi_align.py::
+// The forward replaces the Pallas TPU kernel skghoi_tpu/ops/pallas_roi_align.py::
 // pallas_multiscale_roi_align (pallas_call at :213, body _kernel :90-117)
 // together with its overflow rescue roi_align_exact (:344-368): torchvision
 // roi_align, aligned=False, 7x7 output, sampling ratio 2, one FPN level per
-// box, exact for every box whatever its span.
+// box, exact for every box whatever its span.  The adjoint replaces the
+// kernel's custom-VJP backward _roi_backward (:222-265), whole-level GEMM
+// pairs made for the TPU's MXU; see roi_align_adjoint_kernel below.
 //
-// Bound on the card: bytes.  It does about one fp32 multiply-add per byte it
-// reads, far below the ~295 operations per byte where the tensor cores would
-// be the limit, so the TPU's A_y W A_x^T matmul form (made for the MXU) is not
-// carried over.  The floor is the distinct map cells the boxes touch, read
+// Adjoint, bound on the card: bytes.  It writes the four map gradients whole
+// (380 MB in bf16 at the main path's shapes, almost all zeros) and reads the
+// 6 MB cotangent: 0.115 ms at 3.35 TB/s; its <50 M multiply-adds do not bind.
+// So it writes each gradient cell once, from a tile owner that sums the boxes
+// reaching its tile in registers, and never forms the GEMMs' dense
+// interpolation matrices.
+//
+// Forward, bound on the card: bytes.  It does about one fp32 multiply-add per
+// byte it reads, far below the ~295 operations per byte where the tensor cores
+// would be the limit, so the TPU's A_y W A_x^T matmul form (made for the MXU)
+// is not carried over.  The floor is the distinct map cells the boxes touch, read
 // once, plus the output, written once, over HBM bandwidth: at the main path's
 // shapes (bf16, 8 x 30 boxes, C=256, 832x1344 pyramid) 18.6 MB + 6.0 MB,
 // 7.35 us on an H100 SXM at 3.35 TB/s.
@@ -173,42 +185,59 @@ __device__ __forceinline__ void axis_sample(float start, float roi_len, int size
   *w_hi = oob ? 0.0f : frac;
 }
 
-// One axis of an item's geometry, by one whole warp; lane s < 14 holds
-// sample s.  The samples are monotone and hi <= lo + 1, so the sequence lo0,
-// hi0, lo1, hi1, ... is sorted once repeated samples (lo equal to the previous
-// sample's) are dropped: a cell is new where it exceeds the one before it, and
-// its index in the sorted distinct list is the count of new cells before it.
-// A repeated sample takes the indices of the first sample of its run.  Lanes
-// 0-6 then merge samples 2b and 2b+1 into bin b.
-__device__ __forceinline__ void build_axis(float start, float roi_len, int size, float w_scale,
-                                           int* cells, Bin* bins, int* n) {
+// One axis of a box, by one whole warp; lane s < 14 holds sample s (lanes
+// beyond repeat sample 13).  The samples are monotone and hi <= lo + 1, so
+// the sequence lo0, hi0, lo1, hi1, ... is sorted once repeated samples (lo
+// equal to the previous sample's) are dropped: a cell is new where it exceeds
+// the one before it, and its index in the sorted distinct list is the count
+// of new cells before it.  A repeated sample takes the indices of the first
+// sample of its run.  The forward (build_axis) and the adjoint (adjoint_axis)
+// both start here, so they pick the same cells with the same weights.
+struct AxisRank {
+  int lo, hi;           // the lane's sample's low and high cell
+  float wl, wh;         // their weights, 0 for a sample outside [-1, size]
+  int r_lo, r_hi;       // their indices in the sorted list of distinct cells
+  bool new_lo, new_hi;  // lo (hi) enters that list at this lane, at r_lo (r_hi)
+  int n;                // distinct cells, at most kMaxCells
+};
+
+__device__ __forceinline__ AxisRank rank_axis(float start, float roi_len, int size) {
   const int lane = threadIdx.x & 31;
-  int lo, hi;
-  float wl, wh;
-  axis_sample(start, roi_len, size, min(lane, kSamples - 1), &lo, &hi, &wl, &wh);
-  const int prev_lo = __shfl_up_sync(kFull, lo, 1), prev_hi = __shfl_up_sync(kFull, hi, 1);
+  AxisRank a;
+  axis_sample(start, roi_len, size, min(lane, kSamples - 1), &a.lo, &a.hi, &a.wl, &a.wh);
+  const int prev_lo = __shfl_up_sync(kFull, a.lo, 1), prev_hi = __shfl_up_sync(kFull, a.hi, 1);
   const bool live = lane < kSamples;
-  const bool head = live && (lane == 0 || lo != prev_lo);  // first sample of a run
-  const bool new_lo = head && (lane == 0 || lo > prev_hi);
-  const bool new_hi = head && hi > lo;
-  const unsigned m_lo = __ballot_sync(kFull, new_lo), m_hi = __ballot_sync(kFull, new_hi);
+  const bool head = live && (lane == 0 || a.lo != prev_lo);  // first sample of a run
+  a.new_lo = head && (lane == 0 || a.lo > prev_hi);
+  a.new_hi = head && a.hi > a.lo;
+  const unsigned m_lo = __ballot_sync(kFull, a.new_lo), m_hi = __ballot_sync(kFull, a.new_hi);
   const unsigned m_head = __ballot_sync(kFull, head);
   const unsigned below = (1u << lane) - 1u;
   const int before = __popc(m_lo & below) + __popc(m_hi & below);
-  const int r_lo_head = new_lo ? before : before - 1;
-  const int r_hi_head = new_hi ? before + (new_lo ? 1 : 0) : r_lo_head;
-  if (new_lo) cells[r_lo_head] = lo;
-  if (new_hi) cells[r_hi_head] = hi;
-  if (lane == 0) *n = __popc(m_lo) + __popc(m_hi);
+  const int r_lo_head = a.new_lo ? before : before - 1;
+  const int r_hi_head = a.new_hi ? before + (a.new_lo ? 1 : 0) : r_lo_head;
+  a.n = __popc(m_lo) + __popc(m_hi);
   const int run = 31 - __clz(m_head & (below | (1u << lane)));  // lane of the run's head
-  const int r_lo = __shfl_sync(kFull, r_lo_head, live ? run : 0);
-  const int r_hi = __shfl_sync(kFull, r_hi_head, live ? run : 0);
+  a.r_lo = __shfl_sync(kFull, r_lo_head, live ? run : 0);
+  a.r_hi = __shfl_sync(kFull, r_hi_head, live ? run : 0);
+  return a;
+}
+
+// One axis of an item's geometry, by one whole warp: the sorted distinct
+// cells, and lanes 0-6 merge samples 2b and 2b+1 into bin b.
+__device__ __forceinline__ void build_axis(float start, float roi_len, int size, float w_scale,
+                                           int* cells, Bin* bins, int* n) {
+  const int lane = threadIdx.x & 31;
+  const AxisRank a = rank_axis(start, roi_len, size);
+  if (a.new_lo) cells[a.r_lo] = a.lo;
+  if (a.new_hi) cells[a.r_hi] = a.hi;
+  if (lane == 0) *n = a.n;
 
   const int b = lane % kPooled, s0 = kSr * b, s1 = s0 + 1;
-  const int lo0 = __shfl_sync(kFull, r_lo, s0), hi0 = __shfl_sync(kFull, r_hi, s0);
-  const int lo1 = __shfl_sync(kFull, r_lo, s1), hi1 = __shfl_sync(kFull, r_hi, s1);
-  const float wl0 = __shfl_sync(kFull, wl, s0) * w_scale, wh0 = __shfl_sync(kFull, wh, s0) * w_scale;
-  const float wl1 = __shfl_sync(kFull, wl, s1) * w_scale, wh1 = __shfl_sync(kFull, wh, s1) * w_scale;
+  const int lo0 = __shfl_sync(kFull, a.r_lo, s0), hi0 = __shfl_sync(kFull, a.r_hi, s0);
+  const int lo1 = __shfl_sync(kFull, a.r_lo, s1), hi1 = __shfl_sync(kFull, a.r_hi, s1);
+  const float wl0 = __shfl_sync(kFull, a.wl, s0) * w_scale, wh0 = __shfl_sync(kFull, a.wh, s0) * w_scale;
+  const float wl1 = __shfl_sync(kFull, a.wl, s1) * w_scale, wh1 = __shfl_sync(kFull, a.wh, s1) * w_scale;
   if (lane < kPooled) {
     Bin bin;
     bin.first = lo0;
@@ -221,6 +250,14 @@ __device__ __forceinline__ void build_axis(float start, float roi_len, int size,
     }
     bins[b] = bin;
   }
+}
+
+// A box's start and length on one axis of a level (scale = 1 / stride), the
+// length at least one cell.
+__device__ __forceinline__ void axis_extent(float4 box, bool is_x, float scale, float* start,
+                                            float* len) {
+  *start = (is_x ? box.x : box.y) * scale;
+  *len = fmaxf(__fsub_rn((is_x ? box.z : box.w) * scale, *start), 1.0f);
 }
 
 // The geometry of the item (box b, channel slice `slice`) into g: producer
@@ -244,8 +281,8 @@ __device__ __forceinline__ void build_geom(Levels lv, float4 box, int level, int
     }
   }
   const bool is_x = pw == 0;
-  const float start = (is_x ? box.x : box.y) * scale;
-  const float len = fmaxf(__fsub_rn((is_x ? box.z : box.w) * scale, start), 1.0f);
+  float start, len;
+  axis_extent(box, is_x, scale, &start, &len);
   if (is_x) {
     build_axis(start, len, w, 1.0f, g.col, g.xb, &g.nx);
     if ((threadIdx.x & 31) == 0) {
@@ -606,6 +643,240 @@ int launch(const void* f0, const void* f1, const void* f2, const void* f3, const
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The adjoint: the gradient of the four maps from the cotangent of the output.
+//
+// dF_l[b, y, x, :] = sum over the boxes n of image b assigned to level l, in
+// index order, of sum over bins (py, px) of A_y[n, py, y] A_x[n, px, x]
+// g[b, n, py, px, :], where A_y and A_x hold each bin's bilinear weights
+// (the forward's, from rank_axis) and A_y the 1/4 of the 2x2 mean.  Every
+// box slot counts, padding slots too, as in _roi_backward.
+//
+// A CTA owns one kTile x kTile tile of one level's map, for one image and one
+// 256-byte channel slice: it writes every cell of it exactly once (zeros where
+// no box reaches), so there is no memset, no atomic, and the sums run in one
+// fixed order (deterministic).  It walks the image's boxes in chunks of 256:
+// one thread a box tests whether the box's samples reach the tile (its first
+// sample's low cell and its last sample's high cell on each axis), and a
+// ballot compacts the hits in index order.  For each hit, all threads stage
+// the box's 7x7 cotangent slice (12.5 KB) in shared memory with 16-byte
+// cp.async copies while warp 0 builds the y axis and warp 1 the x axis
+// (adjoint_axis); then warp i accumulates tile row i: lane l owns channel
+// bytes 8l..8l+7 of the slice for the tile's 8 cells of that row, fp32 in
+// registers.  A tile no box reaches only scans the boxes and stores zeros.
+constexpr int kTile = 8;                   // a CTA's tile: kTile x kTile map cells
+constexpr int kBwdWarps = kTile;           // warp i accumulates tile row i
+constexpr int kBwdThreads = 32 * kBwdWarps;
+constexpr int kBwdBlocksPerSm = 4;
+
+struct GradLevels {
+  void* grads[4];
+  int h[4];
+  int w[4];
+  float scale[4];    // 1 / stride
+  int tiles_x[4];    // tiles across a level's row
+  int first[4];      // the level's first CTA
+};
+
+// Whether a box's samples on one axis reach cells t0 .. t0 + kTile - 1: the
+// samples are monotone, so its first sample's low cell and its last sample's
+// high cell bound every cell it touches.
+__device__ __forceinline__ bool box_meets(float4 box, bool is_x, float scale, int size, int t0) {
+  float start, len, w0, w1;
+  axis_extent(box, is_x, scale, &start, &len);
+  int lo, hi, other;
+  axis_sample(start, len, size, 0, &lo, &other, &w0, &w1);
+  axis_sample(start, len, size, kSamples - 1, &other, &hi, &w0, &w1);
+  return lo < t0 + kTile && hi >= t0;
+}
+
+// One axis of a box's adjoint geometry, by one whole warp, for the tile's
+// cells t0 .. t0 + kTile - 1 on that axis: map[i] is the index of cell t0 + i
+// in the box's sorted distinct list, or -1; for distinct cell d, wt[d][p] is
+// its weight in bin p (the forward's bin sums, times w_scale: both weights of
+// a sample clamped to the edge land on one cell and are added) and span[d]
+// holds the first and last bin whose samples touch it (first | last << 8).
+__device__ __forceinline__ void adjoint_axis(float start, float roi_len, int size, float w_scale,
+                                             int t0, int* map, float (*wt)[kPooled + 1],
+                                             int* span) {
+  const int lane = threadIdx.x & 31;
+  if (lane < kTile) map[lane] = -1;
+  const AxisRank a = rank_axis(start, roi_len, size);
+  __syncwarp();
+  if (a.new_lo && (unsigned)(a.lo - t0) < (unsigned)kTile) map[a.lo - t0] = a.r_lo;
+  if (a.new_hi && (unsigned)(a.hi - t0) < (unsigned)kTile) map[a.hi - t0] = a.r_hi;
+  int first = kPooled, last = -1;
+#pragma unroll
+  for (int p = 0; p < kPooled; ++p) {
+    const int s0 = kSr * p, s1 = s0 + 1;
+    const int lo0 = __shfl_sync(kFull, a.r_lo, s0), hi0 = __shfl_sync(kFull, a.r_hi, s0);
+    const int lo1 = __shfl_sync(kFull, a.r_lo, s1), hi1 = __shfl_sync(kFull, a.r_hi, s1);
+    const float wl0 = __shfl_sync(kFull, a.wl, s0) * w_scale, wh0 = __shfl_sync(kFull, a.wh, s0) * w_scale;
+    const float wl1 = __shfl_sync(kFull, a.wl, s1) * w_scale, wh1 = __shfl_sync(kFull, a.wh, s1) * w_scale;
+    if (lane < kMaxCells) {
+      wt[lane][p] = (lo0 == lane ? wl0 : 0.0f) + (hi0 == lane ? wh0 : 0.0f) +
+                    (lo1 == lane ? wl1 : 0.0f) + (hi1 == lane ? wh1 : 0.0f);
+    }
+    if (lo0 == lane || hi0 == lane || lo1 == lane || hi1 == lane) {
+      first = min(first, p);
+      last = p;
+    }
+  }
+  if (lane < kMaxCells) span[lane] = first | (last << 8);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads, kBwdBlocksPerSm)
+roi_align_adjoint_kernel(GradLevels lv, const float4* __restrict__ boxes,
+                         const int* __restrict__ levels, const T* __restrict__ cot, int n_boxes,
+                         int n_slices, int c) {
+  constexpr int kE = 8 / sizeof(T);  // channels a lane owns
+  __shared__ __align__(16) unsigned char gs[kPooled * kPooled * kSliceBytes];  // the box's cotangent slice
+  __shared__ float wy[kMaxCells][kPooled + 1], wx[kMaxCells][kPooled + 1];
+  __shared__ int span_y[kMaxCells], span_x[kMaxCells];
+  __shared__ int row_of[kTile], col_of[kTile];
+  __shared__ int hits[kBwdThreads];
+  __shared__ int warp_hits[kBwdWarps];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  // This CTA's level, image, slice and tile (selects, not a run-time index
+  // into the parameter block).
+  int level = 0;
+#pragma unroll
+  for (int i = 1; i < 4; ++i) level = (int)blockIdx.x >= lv.first[i] ? i : level;
+  void* grad = lv.grads[0];
+  int h = lv.h[0], w = lv.w[0], tiles_x = lv.tiles_x[0], first = lv.first[0];
+  float scale = lv.scale[0];
+#pragma unroll
+  for (int i = 1; i < 4; ++i) {
+    if (level == i) {
+      grad = lv.grads[i];
+      h = lv.h[i];
+      w = lv.w[i];
+      tiles_x = lv.tiles_x[i];
+      first = lv.first[i];
+      scale = lv.scale[i];
+    }
+  }
+  const int tiles = tiles_x * ((h + kTile - 1) / kTile);
+  const int idx = (int)blockIdx.x - first;
+  const int tile = idx % tiles, rest = idx / tiles;
+  const int slice = rest % n_slices, b = rest / n_slices;
+  const int y0 = tile / tiles_x * kTile, x0 = tile % tiles_x * kTile;
+  const int c0 = slice * (kSliceBytes / (int)sizeof(T));
+  const int nvec = min(kVecs, (c - c0) * (int)sizeof(T) / 16);
+  const bool live = lane < 2 * nvec;
+  const unsigned gs_s = static_cast<unsigned>(__cvta_generic_to_shared(gs));
+
+  float acc[kTile][kE];
+#pragma unroll
+  for (int j = 0; j < kTile; ++j) {
+#pragma unroll
+    for (int e = 0; e < kE; ++e) acc[j][e] = 0.0f;
+  }
+
+  for (int base = 0; base < n_boxes; base += kBwdThreads) {
+    const int n = base + (int)threadIdx.x;
+    bool hit = false;
+    if (n < n_boxes && levels[b * n_boxes + n] == level) {
+      const float4 box = boxes[b * n_boxes + n];
+      hit = box_meets(box, false, scale, h, y0) && box_meets(box, true, scale, w, x0);
+    }
+    const unsigned m = __ballot_sync(kFull, hit);
+    if (lane == 0) warp_hits[warp] = __popc(m);
+    __syncthreads();
+    int pos = __popc(m & ((1u << lane) - 1u)), count = 0;
+#pragma unroll
+    for (int i = 0; i < kBwdWarps; ++i) {
+      pos += i < warp ? warp_hits[i] : 0;
+      count += warp_hits[i];
+    }
+    if (hit) hits[pos] = n;
+    __syncthreads();
+
+    for (int k = 0; k < count; ++k) {
+      const int bn = b * n_boxes + hits[k];
+      const char* src = reinterpret_cast<const char*>(cot) +
+                        ((size_t)bn * kPooled * kPooled * c + c0) * sizeof(T);
+      for (int i = threadIdx.x; i < kPooled * kPooled * kVecs; i += kBwdThreads) {
+        const int q = i / kVecs, v = i % kVecs;
+        if (v < nvec) cp_async16(gs_s + q * kSliceBytes + v * 16, src + (size_t)q * c * sizeof(T) + v * 16);
+      }
+      cp_async_commit();
+      if (warp < 2) {
+        float start, len;
+        axis_extent(boxes[bn], warp == 1, scale, &start, &len);
+        if (warp == 1) {
+          adjoint_axis(start, len, w, 1.0f, x0, col_of, wx, span_x);
+        } else {
+          adjoint_axis(start, len, h, 1.0f / (kSr * kSr), y0, row_of, wy, span_y);
+        }
+      }
+      cp_async_wait<0>();
+      __syncthreads();
+
+      const int dy = row_of[warp];
+      if (dy >= 0 && live) {
+        const int sy = span_y[dy];
+#pragma unroll
+        for (int j = 0; j < kTile; ++j) {
+          const int dx = col_of[j];
+          if (dx < 0) continue;
+          const int sx = span_x[dx];
+          for (int py = sy & 0xff; py <= (sy >> 8); ++py) {
+            const unsigned char* g_row = gs + py * kPooled * kSliceBytes + lane * 8;
+            float t[kE];
+#pragma unroll
+            for (int e = 0; e < kE; ++e) t[e] = 0.0f;
+            for (int px = sx & 0xff; px <= (sx >> 8); ++px) {
+              fma8(t, *reinterpret_cast<const uint2*>(g_row + px * kSliceBytes), wx[dx][px]);
+            }
+            const float a = wy[dy][py];
+#pragma unroll
+            for (int e = 0; e < kE; ++e) acc[j][e] += a * t[e];
+          }
+        }
+      }
+      __syncthreads();  // the next box overwrites the stage and the geometry
+    }
+  }
+
+  const int y = y0 + warp;
+  if (y < h && live) {
+    T* row = static_cast<T*>(grad) + (((size_t)b * h + y) * w + x0) * c + c0 + lane * kE;
+#pragma unroll
+    for (int j = 0; j < kTile; ++j) {
+      if (x0 + j < w) store8(row + (size_t)j * c, acc[j]);
+    }
+  }
+}
+
+template <typename T>
+int launch_adjoint(void* g0, void* g1, void* g2, void* g3, const int* hw, const float* scales,
+                   const float* boxes, const int* levels, const void* cot, int n_images,
+                   int n_boxes, int c, void* stream) {
+  GradLevels lv;
+  void* grads[4] = {g0, g1, g2, g3};
+  const int slice = kSliceBytes / (int)sizeof(T);
+  const long long n_slices = (c + slice - 1) / slice;
+  long long total = 0;
+  for (int i = 0; i < 4; ++i) {
+    lv.grads[i] = grads[i];
+    lv.h[i] = hw[2 * i];
+    lv.w[i] = hw[2 * i + 1];
+    lv.scale[i] = scales[i];
+    lv.tiles_x[i] = (lv.w[i] + kTile - 1) / kTile;
+    lv.first[i] = (int)total;
+    total += n_images * n_slices * lv.tiles_x[i] * ((lv.h[i] + kTile - 1) / kTile);
+    if (total > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  }
+  if (total == 0) return (int)cudaSuccess;
+  roi_align_adjoint_kernel<T><<<(unsigned)total, kBwdThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      lv, reinterpret_cast<const float4*>(boxes), levels, static_cast<const T*>(cot), n_boxes,
+      (int)n_slices, c);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C interface, loaded with ctypes.  Pointers are device pointers except
@@ -627,4 +898,23 @@ extern "C" int skghoi_roi_align_fwd_bf16(const void* f0, const void* f1, const v
                                          int n_images, int n_boxes, int c, void* stream) {
   return launch<__nv_bfloat16>(f0, f1, f2, f3, hw, scales, boxes, levels, out, n_images,
                                n_boxes, c, stream);
+}
+
+// The adjoint: g0..g3 ([B, H_l, W_l, C], every element written) from the
+// cotangent ([B, N, 7, 7, C]) in the same dtype; the other arguments as for
+// the forward.  No atomics: the same inputs give the same bits every call.
+extern "C" int skghoi_roi_align_bwd_f32(void* g0, void* g1, void* g2, void* g3, const int* hw,
+                                        const float* scales, const float* boxes,
+                                        const int* levels, const void* grad_out, int n_images,
+                                        int n_boxes, int c, void* stream) {
+  return launch_adjoint<float>(g0, g1, g2, g3, hw, scales, boxes, levels, grad_out, n_images,
+                               n_boxes, c, stream);
+}
+
+extern "C" int skghoi_roi_align_bwd_bf16(void* g0, void* g1, void* g2, void* g3, const int* hw,
+                                         const float* scales, const float* boxes,
+                                         const int* levels, const void* grad_out, int n_images,
+                                         int n_boxes, int c, void* stream) {
+  return launch_adjoint<__nv_bfloat16>(g0, g1, g2, g3, hw, scales, boxes, levels, grad_out,
+                                       n_images, n_boxes, c, stream);
 }

@@ -17,8 +17,10 @@ path, and what the kernel is held against on the card.  Maps are NHWC.
 :func:`roi_align_adjoint` is the gradient with respect to the maps, the
 counterpart of ``skghoi_tpu/ops/pallas_roi_align.py::_roi_backward``: per
 level, ``dF = A_y^T dOut A_x`` as two batched GEMMs over whole-level
-interpolation matrices (:func:`level_axis_weights`).  It is what the CUDA
-kernel's ``autograd.Function`` runs in its backward, on the card too.
+interpolation matrices (:func:`level_axis_weights`).  It is the plain version
+of the CUDA adjoint kernel that ``roi_align_cuda.RoIAlignFunction`` runs in
+its backward: the CPU tests and ``chip_smoke.py`` hold the kernel against it,
+and nothing on the card's path calls it.
 """
 
 from __future__ import annotations

@@ -10,7 +10,9 @@ port's tests remove what they write (checked on their source, by AST): every
 a fixture that removes the test's directory when it ends.  Every field of
 a flax module of the JAX package that a JAX caller sets, where the port has
 a class of that name, is an ``__init__`` argument there, or is listed with
-its reason (checked on the sources of both, by AST).
+its reason (checked on the sources of both, by AST).  ``RoIAlignFunction``'s
+backward reaches no ``roi_align_adjoint``, ``matmul`` or ``einsum`` through
+any helper of its module (by AST): on the card it runs the adjoint kernel.
 """
 
 import ast
@@ -146,6 +148,64 @@ def test_cpu_on_request():
     assert batch.images.device.type == "cpu" and batch.images.shape == (1, 832, 1344, 3)
     scores = fn(batch)
     assert scores.shape == (1, 15, 30, 117) and torch.isfinite(scores).all()
+
+
+# --- the card's backward is the adjoint kernel ----------------------------------
+
+GEMM_ROUTE = {"roi_align_adjoint", "matmul", "einsum", "bmm", "baddbmm", "mm"}
+
+
+def _callee(call):
+    return call.func.id if isinstance(call.func, ast.Name) else getattr(call.func, "attr", None)
+
+
+def _reached_calls(tree, cls, method):
+    """Names of every call reached from ``cls.method``, following calls of the
+    module's own functions and methods (by name) into their bodies."""
+    defs = {}
+    for node in tree.body:
+        if isinstance(node, ast.FunctionDef):
+            defs[node.name] = node
+        elif isinstance(node, ast.ClassDef):
+            defs.update({f.name: f for f in node.body if isinstance(f, ast.FunctionDef)})
+    start = next(f for c in tree.body if isinstance(c, ast.ClassDef) and c.name == cls
+                 for f in c.body if isinstance(f, ast.FunctionDef) and f.name == method)
+    reached, todo, seen = set(), [start], set()
+    while todo:
+        fn = todo.pop()
+        if fn.name in seen:
+            continue
+        seen.add(fn.name)
+        for node in ast.walk(fn):
+            if isinstance(node, ast.Call) and _callee(node):
+                reached.add(_callee(node))
+                if _callee(node) in defs:
+                    todo.append(defs[_callee(node)])
+    return reached
+
+
+def test_backward_reaches_no_gemm_route():
+    """On the card ``RoIAlignFunction.backward`` runs the adjoint kernel and
+    nothing of the plain GEMM route (``roi_align_adjoint``, ``matmul``,
+    ``einsum``), however deep in the module's own helpers."""
+    tree = ast.parse((ROOT / "skghoi_torch" / "ops" / "roi_align_cuda.py").read_text())
+    reached = _reached_calls(tree, "RoIAlignFunction", "backward")
+    assert {"adjoint", "_check_adjoint_inputs", "_launch"} <= reached
+    assert not reached & GEMM_ROUTE, sorted(reached & GEMM_ROUTE)
+
+
+def test_backward_rule_sees_what_it_checks():
+    """The scan follows a helper's helper and catches the GEMM route there."""
+    tree = ast.parse(
+        "class RoIAlignFunction:\n"
+        "    def backward(ctx, g):\n"
+        "        return helper(g)\n"
+        "def helper(g):\n"
+        "    return roi_align_cuda.inner(g)\n"
+        "class K:\n"
+        "    def inner(self, g):\n"
+        "        return torch.matmul(g, g)\n")
+    assert _reached_calls(tree, "RoIAlignFunction", "backward") & GEMM_ROUTE == {"matmul"}
 
 
 # --- the port's tests remove what they write ------------------------------------
