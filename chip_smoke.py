@@ -158,8 +158,9 @@ Phases, each reporting on its own lines; any failure exits non-zero:
     then the same step cut into forward, host Hungarian and backward+update;
     card against CPU at init and with the trained weights (outputs within
     ``S1_ADAMIXER_TOL``, the set loss on the CPU's assignments fed to both,
-    and in float64 the backbone's gradients at init and the pyramid's and
-    the decoder's after training within ``S1_GRAD64_TOL``); a seeded
+    and in float64 the pyramids within ``S1_PYR64_TOL``, then the backbone's
+    gradients at init and the pyramid's and the decoder's after training
+    within ``S1_GRAD64_TOL``); a seeded
     random facebookresearch-layout DETR-R50 ``.pt`` through
     ``preprocess_detections --detector detr`` over 8 landscape and 4
     portrait images (images/s) and one image card against CPU
@@ -2250,9 +2251,18 @@ S1_GRAD_FLOAT64_TOL = 2e-2
 # ill-conditioned (card and CPU up to 2.3e-2 and 1.1e-2 from float64, the
 # worse side changing tensor by tensor and run to run); at init its
 # sampling points sit where bilinear sampling's derivative jumps (the
-# card's offset generator gradients 5-90% from float64); after training
-# one ResNet gradient was 1.5e-3 apart even in float64.
+# card's offset generator gradients 5-90% from float64).  The trained
+# six-stage decoder turns a difference in its input pyramid into decoder
+# gradient differences up to some 2 000 times larger, run by run (on an
+# H100, with FrozenBatchNorm's constants in float32: pyramids 5e-7-1e-6
+# apart, decoder gradients 1.8e-6-1.6e-3), so these hold only while both
+# pyramids are float64 throughout (S1_PYR64_TOL).
 S1_GRAD64_TOL = 1e-4
+# phase 13: AdaMixer's float64 pyramid card vs CPU at the same weights, each
+# level relative to its largest, held before any gradient: float64 rounding
+# through the ~60 layers of ResNet-50 + FPN is ~1e-13, one layer computed in
+# float32 ~1e-7, so a miss says that a float64 copy is not float64.
+S1_PYR64_TOL = 1e-10
 # phase 13e: bfloat16 on the card against bfloat16 on the CPU, each output
 # of each image within S1_BF16_FACTOR x the card's own bfloat16-against-
 # float32 gap on it, and that gap under S1_BF16_GAP_MAX of the output's
@@ -2267,8 +2277,8 @@ DETR_BENCH_REPEATS = 3  # phase 13e: bench.py's repeats, median reported
 
 
 def _rel(a, b):
-    """Largest |a - b| over the largest |b|."""
-    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    """Largest |a - b| over the largest |b|, computed in float64."""
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
     return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
 
 
@@ -2280,7 +2290,11 @@ def _grads(model, loss):
 
 
 def _float64_copy(model):
-    """A float64 copy of a CPU model (every layer computing in float64)."""
+    """A float64 copy of a model: every parameter and buffer float64, and
+    every layer with a ``compute_dtype`` set to float64, so that every
+    floating op computes in float64 (``tests/test_torch_port_float64.py``
+    logs the ops of the detectors' copies; phase 13b holds the card's
+    pyramid to the CPU's at ``S1_PYR64_TOL``)."""
     import copy
 
     model = copy.deepcopy(model).double()
@@ -2428,8 +2442,8 @@ def stage1_fpn(images, gt):
 
 def _adamixer_grads(model, images, assign, gt, hw, upstream=None):
     """One set-loss backward split at the pyramid -> (the loss, the
-    pyramid's gradients (the gathers' scatter-add backward), every
-    parameter's gradient: the decoder's from the loss, the backbone's
+    pyramid, the pyramid's gradients (the gathers' scatter-add backward),
+    every parameter's gradient: the decoder's from the loss, the backbone's
     (ResNet + FPN) from ``upstream``, another run's pyramid gradients, or
     else this run's own), on the host."""
     from skghoi_torch.detect.adamixer import set_loss
@@ -2445,7 +2459,8 @@ def _adamixer_grads(model, images, assign, gt, hw, upstream=None):
     bg = torch.autograd.grad(pyramid, [p for _, p in bb], grad_outputs=up)
     grads = {f"decoder.{n}": x.detach().cpu() for (n, _), x in zip(dec, g[len(pyramid):])}
     grads.update({f"backbone.{n}": x.detach().cpu() for (n, _), x in zip(bb, bg)})
-    return loss.item(), [x.detach().cpu() for x in g[:len(pyramid)]], grads
+    return (loss.item(), [x.detach().cpu() for x in pyramid],
+            [x.detach().cpu() for x in g[:len(pyramid)]], grads)
 
 
 def stage1_adamixer(images, gt):
@@ -2453,7 +2468,8 @@ def stage1_adamixer(images, gt):
     the card's weights; assignments computed once on the CPU and fed to
     both) at init and after the train steps: per-stage logits and boxes and
     the set loss in float32, then both models in float64 for one backward
-    split at the pyramid (see ``S1_GRAD64_TOL``): at init every backbone
+    split at the pyramid (see ``S1_GRAD64_TOL``), the two float64 pyramids
+    held first (``S1_PYR64_TOL``): at init every backbone
     gradient from the CPU's pyramid gradients; after training the set loss,
     the pyramid's gradients (the gathers' scatter-add backward, with
     atomics on the card) and every decoder gradient.  Between the two, the
@@ -2487,8 +2503,15 @@ def stage1_adamixer(images, gt):
                    boxes_rel=[_rel(g, w) for g, w in zip(got.boxes, want.boxes)],
                    boxes_moved_px=(want.boxes[-1] - want.boxes[0]).abs().max().item(),
                    set_loss_rel=abs(lg - lw) / abs(lw))
-        lw, pyr_w, grads_w = _adamixer_grads(_float64_copy(cpu), cpu_image, assign, cpu_one, hw)
-        lg, pyr_g, grads_g = _adamixer_grads(_float64_copy(card), image, assign, one, hw, pyr_w)
+        lw, fw, pyr_w, grads_w = _adamixer_grads(
+            _float64_copy(cpu), cpu_image, assign, cpu_one, hw)
+        lg, fg, pyr_g, grads_g = _adamixer_grads(
+            _float64_copy(card), image, assign, one, hw, pyr_w)
+        res["pyramid64_rel"] = [_rel(g, w) for g, w in zip(fg, fw)]
+        if max(res["pyramid64_rel"]) > S1_PYR64_TOL:
+            raise AssertionError(f"AdaMixer ({part}): the float64 pyramids card vs CPU "
+                                 f"{res['pyramid64_rel']} (tol {S1_PYR64_TOL:g}): a float64 copy "
+                                 f"computes below float64")
         rel = {n: r for n, r in _grad_rel(grads_g, grads_w).items() if n.startswith(part)}
         res.update(set_loss64_rel=abs(lg - lw) / abs(lw), gradients=len(rel),
                    grad_rel=max(rel.values()), grad_rel_at=max(rel, key=rel.get),
@@ -2534,6 +2557,41 @@ def stage1_adamixer(images, gt):
             or not out["gt_boxes"]):
         raise AssertionError(f"AdaMixer card vs CPU after training: {out}")
     return out
+
+
+def adamixer_check(runs=1):
+    """Phase 13b alone, ``runs`` times on one batch, TF32 off as ``main``
+    sets it: one JSON line a run with the card-vs-CPU readings at init and
+    after training, or the error the run raised; raises at the end if any
+    run failed.
+
+        python3 -c "import chip_smoke as c; c.adamixer_check(10)"
+    """
+    import tempfile
+
+    from skghoi_torch.data.synthetic import make_synthetic_hicodet
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    keys = ("pyramid64_rel", "logits_rel", "boxes_rel", "set_loss_rel", "set_loss64_rel",
+            "pyramid_grad_rel", "grad_rel", "grad_rel_at")
+    failed = 0
+    with tempfile.TemporaryDirectory(prefix="skghoi_s1_") as root:
+        make_synthetic_hicodet(root, "train2015", num_images=DET_TRAIN_IMAGES)
+        write_coco_to_hico(root)
+        images, gt = _detector_batch(root, S1_BATCH)
+        for i in range(runs):
+            t0 = time.perf_counter()
+            try:
+                a = stage1_adamixer(images, gt)
+                line = dict(init={k: a["init"][k] for k in keys}, after={k: a[k] for k in keys},
+                            losses=a["losses"])
+            except AssertionError as e:
+                failed += 1
+                line = dict(error=str(e))
+            log(json.dumps(dict(run=i, seconds=time.perf_counter() - t0, **line)))
+    if failed:
+        raise AssertionError(f"AdaMixer check: {failed} of {runs} runs failed")
 
 
 def stage1_detr(root):
@@ -2769,15 +2827,17 @@ def phase_stage1():
         i = a["init"]
         log(f"[stage1] AdaMixer card vs CPU at init (one image): logits rel "
             f"{max(i['logits_rel']):.2e}, boxes {max(i['boxes_rel']):.2e}, set loss "
-            f"{i['set_loss_rel']:.2e}; in float64 from the CPU's pyramid gradients "
-            f"{i['gradients']} backbone gradients, largest {i['grad_rel']:.3e} "
+            f"{i['set_loss_rel']:.2e}; in float64: pyramid "
+            f"{[f'{x:.2e}' for x in i['pyramid64_rel']]} (tol {S1_PYR64_TOL:g}), from the CPU's "
+            f"pyramid gradients {i['gradients']} backbone gradients, largest {i['grad_rel']:.3e} "
             f"({i['grad_rel_at']}; tol {S1_GRAD64_TOL:g})")
         log(f"[stage1] AdaMixer card vs CPU after its {len(a['losses'])} train steps (one image, "
             f"100 queries, 6 stages): logits rel {[f'{x:.2e}' for x in a['logits_rel']]}, boxes "
             f"rel {[f'{x:.2e}' for x in a['boxes_rel']]} (tol {S1_ADAMIXER_TOL:g}; the last "
             f"stage's boxes {a['boxes_moved_px']:.3f} px from the first's); set loss on the CPU's "
             f"assignments {a['set_loss_rel']:.3e} (rtol {S1_LOSS_RTOL:g}), {a['gt_boxes']} GT; in "
-            f"float64: set loss {a['set_loss64_rel']:.3e}, pyramid gradients "
+            f"float64: pyramid {[f'{x:.2e}' for x in a['pyramid64_rel']]} (tol {S1_PYR64_TOL:g}), "
+            f"set loss {a['set_loss64_rel']:.3e}, pyramid gradients "
             f"{[f'{x:.2e}' for x in a['pyramid_grad_rel']]}, {a['gradients']} decoder gradients, "
             f"largest {a['grad_rel']:.3e} ({a['grad_rel_at']}; tol {S1_GRAD64_TOL:g})")
         t0 = time.perf_counter()

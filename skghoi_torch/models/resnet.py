@@ -30,8 +30,11 @@ Tensor = torch.Tensor
 class FrozenBatchNorm(nn.Module):
     """BatchNorm over stored statistics, folded into one multiply-add.
 
-    The per-channel constants are computed in float32; the activation stays in
-    ``dtype`` (eps 1e-5, as ``skghoi_tpu.models.resnet.FrozenBatchNorm``).
+    The per-channel constants are computed in the statistics' dtype promoted to
+    at least float32: float32 for the float32 buffers every float32 and
+    bfloat16 model keeps (as ``skghoi_tpu.models.resnet.FrozenBatchNorm``),
+    float64 once ``.double()`` has made the buffers float64. The activation
+    stays in ``dtype`` (eps 1e-5).
     """
 
     def __init__(self, channels: int, eps: float = 1e-5, dtype: torch.dtype = torch.float32):
@@ -44,8 +47,9 @@ class FrozenBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x: Tensor) -> Tensor:
-        inv = torch.rsqrt(self.running_var.float() + self.eps) * self.weight.float()
-        shift = self.bias.float() - self.running_mean.float() * inv
+        ct = torch.promote_types(self.running_var.dtype, torch.float32)
+        inv = torch.rsqrt(self.running_var.to(ct) + self.eps) * self.weight.to(ct)
+        shift = self.bias.to(ct) - self.running_mean.to(ct) * inv
         dt = self.compute_dtype
         return x.to(dt) * inv.to(dt).view(1, -1, 1, 1) + shift.to(dt).view(1, -1, 1, 1)
 
