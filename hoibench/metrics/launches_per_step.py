@@ -1,0 +1,4 @@
+"""Kernel launches the host issued (``cudaLaunchKernel*``, ``cuLaunchKernel*``
+rows of the trace) per traced step."""
+
+from hoibench.trace import launches_per_unit as read  # noqa: F401
