@@ -36,6 +36,7 @@ from skghoi_torch.data.transforms import (
     scale_boxes,
 )
 from skghoi_torch.device import resolve_device
+from skghoi_torch.utils.profiling import span
 
 
 class DataFactory:
@@ -375,7 +376,8 @@ def to_device(batch: HOIBatch, device=None) -> HOIBatch:
             return t.pin_memory().to(device, non_blocking=True)
         return t.to(device)
 
-    targets = None
-    if batch.targets is not None:
-        targets = HOITargets(*map(move, batch.targets))
-    return HOIBatch(*map(move, batch[:-1]), targets)
+    with span("to_device"):
+        targets = None
+        if batch.targets is not None:
+            targets = HOITargets(*map(move, batch.targets))
+        return HOIBatch(*map(move, batch[:-1]), targets)

@@ -37,6 +37,7 @@ from skghoi_torch.ops.losses import (
 from skghoi_torch.ops.roi_align_cuda import roi_align_auto
 from skghoi_torch.parallel.distributed import world_size
 from skghoi_torch.parallel.mesh import all_reduce_sum
+from skghoi_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -79,46 +80,47 @@ def filter_detections(boxes: Tensor, labels: Tensor, scores: Tensor, valid: Tens
     With ``targets``, the ground-truth human and object boxes go ahead of the
     detections with score 1.0 (training, ref ``:104-116``), so they survive
     the threshold and sort to the front."""
-    n_slots = max_human + max_object
-    if targets is not None:
-        gt_scores = targets.valid.to(scores.dtype)
-        boxes = torch.cat([targets.boxes_h, targets.boxes_o, boxes], dim=1)
-        scores = torch.cat([gt_scores, gt_scores, scores], dim=1)
-        labels = torch.cat([torch.full_like(targets.object, human_idx).to(labels.dtype),
-                            targets.object.to(labels.dtype), labels], dim=1)
-        valid = torch.cat([targets.valid, targets.valid, valid], dim=1)
-    valid = valid & (scores >= box_score_thresh)
-    keep = batched_nms_keep(boxes, scores, labels, valid, box_nms_thresh)
+    with span("filter"):
+        n_slots = max_human + max_object
+        if targets is not None:
+            gt_scores = targets.valid.to(scores.dtype)
+            boxes = torch.cat([targets.boxes_h, targets.boxes_o, boxes], dim=1)
+            scores = torch.cat([gt_scores, gt_scores, scores], dim=1)
+            labels = torch.cat([torch.full_like(targets.object, human_idx).to(labels.dtype),
+                                targets.object.to(labels.dtype), labels], dim=1)
+            valid = torch.cat([targets.valid, targets.valid, valid], dim=1)
+        valid = valid & (scores >= box_score_thresh)
+        keep = batched_nms_keep(boxes, scores, labels, valid, box_nms_thresh)
 
-    order = torch.argsort(-torch.where(keep, scores, torch.full_like(scores, _NEG_INF)),
-                          dim=-1, stable=True)
-    s_boxes = torch.gather(boxes, 1, order[..., None].expand(*order.shape, 4))
-    s_labels = torch.gather(labels, 1, order)
-    s_scores = torch.gather(scores, 1, order)
-    s_keep = torch.gather(keep, 1, order)
+        order = torch.argsort(-torch.where(keep, scores, torch.full_like(scores, _NEG_INF)),
+                              dim=-1, stable=True)
+        s_boxes = torch.gather(boxes, 1, order[..., None].expand(*order.shape, 4))
+        s_labels = torch.gather(labels, 1, order)
+        s_scores = torch.gather(scores, 1, order)
+        s_keep = torch.gather(keep, 1, order)
 
-    is_h = s_keep & (s_labels == human_idx)
-    is_o = s_keep & (s_labels != human_idx)
-    h_rank = torch.cumsum(is_h, dim=1)  # 1-based among humans, in score order
-    o_rank = torch.cumsum(is_o, dim=1)
-    n_h = h_rank[:, -1].clamp_max(max_human)
-    n = n_h + o_rank[:, -1].clamp_max(max_object)
+        is_h = s_keep & (s_labels == human_idx)
+        is_o = s_keep & (s_labels != human_idx)
+        h_rank = torch.cumsum(is_h, dim=1)  # 1-based among humans, in score order
+        o_rank = torch.cumsum(is_o, dim=1)
+        n_h = h_rank[:, -1].clamp_max(max_human)
+        n = n_h + o_rank[:, -1].clamp_max(max_object)
 
-    # Humans pack into slots [0, n_h), objects into [n_h, n); everything else
-    # goes to an extra slot that is dropped.
-    slot = torch.where(
-        is_h & (h_rank <= max_human),
-        h_rank - 1,
-        torch.where(is_o & (o_rank <= max_object), n_h[:, None] + o_rank - 1,
-                    torch.full_like(h_rank, n_slots)),
-    )
+        # Humans pack into slots [0, n_h), objects into [n_h, n); everything else
+        # goes to an extra slot that is dropped.
+        slot = torch.where(
+            is_h & (h_rank <= max_human),
+            h_rank - 1,
+            torch.where(is_o & (o_rank <= max_object), n_h[:, None] + o_rank - 1,
+                        torch.full_like(h_rank, n_slots)),
+        )
 
-    def pack(x: Tensor) -> Tensor:
-        idx = slot.view(*slot.shape, *([1] * (x.dim() - 2))).expand_as(x)
-        out = x.new_zeros((x.shape[0], n_slots + 1, *x.shape[2:]))
-        return out.scatter(1, idx, x)[:, :n_slots].contiguous()
+        def pack(x: Tensor) -> Tensor:
+            idx = slot.view(*slot.shape, *([1] * (x.dim() - 2))).expand_as(x)
+            out = x.new_zeros((x.shape[0], n_slots + 1, *x.shape[2:]))
+            return out.scatter(1, idx, x)[:, :n_slots].contiguous()
 
-    return FilteredDetections(pack(s_boxes), pack(s_labels), pack(s_scores), n_h, n)
+        return FilteredDetections(pack(s_boxes), pack(s_labels), pack(s_scores), n_h, n)
 
 
 class InteractionHead(nn.Module):

@@ -23,6 +23,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from skghoi_torch.models.layers import Conv2d
+from skghoi_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -115,19 +116,20 @@ class ResNet50(nn.Module):
             getattr(self, f"layer{stage}").requires_grad_(False)
 
     def forward(self, x: Tensor) -> Tuple[Tensor, ...]:
-        x = x.to(self.compute_dtype).contiguous(memory_format=torch.channels_last)
-        x = F.relu(self.bn1(self.conv1(x)))
-        x = F.max_pool2d(x, 3, stride=2, padding=1)
-        if self.frozen_stages >= 0:
-            x = x.detach()
-        outputs = []
-        for stage, layer in enumerate((self.layer1, self.layer2, self.layer3, self.layer4), 1):
-            if self.remat_stages and stage >= self.remat_stages and torch.is_grad_enabled():
-                for block in layer:
-                    x = checkpoint(block, x, use_reentrant=False)
-            else:
-                x = layer(x)
-            if self.frozen_stages >= stage:
+        with span("resnet50"):
+            x = x.to(self.compute_dtype).contiguous(memory_format=torch.channels_last)
+            x = F.relu(self.bn1(self.conv1(x)))
+            x = F.max_pool2d(x, 3, stride=2, padding=1)
+            if self.frozen_stages >= 0:
                 x = x.detach()
-            outputs.append(x)
-        return tuple(outputs)
+            outputs = []
+            for stage, layer in enumerate((self.layer1, self.layer2, self.layer3, self.layer4), 1):
+                if self.remat_stages and stage >= self.remat_stages and torch.is_grad_enabled():
+                    for block in layer:
+                        x = checkpoint(block, x, use_reentrant=False)
+                else:
+                    x = layer(x)
+                if self.frozen_stages >= stage:
+                    x = x.detach()
+                outputs.append(x)
+            return tuple(outputs)

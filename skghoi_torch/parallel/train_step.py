@@ -28,6 +28,7 @@ from typing import Callable, Optional, Sequence
 import torch
 
 from skghoi_torch.parallel.mesh import all_reduce_mean_
+from skghoi_torch.utils.profiling import span
 
 ALL_LOSSES = ("hoi_loss", "interactiveness_loss", "transh_loss")
 
@@ -59,9 +60,11 @@ def build_train_step(model, optimizer: torch.optim.Optimizer, object_verb_mask: 
     def step(batch, generator: Optional[torch.Generator] = None,
              gumbel: Optional[torch.Tensor] = None):
         optimizer.zero_grad(set_to_none=False)
-        out = model(batch, object_verb_mask, training=True, generator=generator, gumbel=gumbel)
+        with span("forward"):
+            out = model(batch, object_verb_mask, training=True, generator=generator, gumbel=gumbel)
         total = sum(out.losses[k] for k in keys)
-        total.backward()
+        with span("backward"):
+            total.backward()
         for p in params:  # first step: parameters the selected losses do not reach
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
@@ -70,11 +73,13 @@ def build_train_step(model, optimizer: torch.optim.Optimizer, object_verb_mask: 
         losses = {k: v.detach() for k, v in out.losses.items()}
         # One all-reduce averages the gradients, the total and the losses.
         all_reduce_mean_([*grads, total, *losses.values()])
-        applied = all_finite(total, grads)
-        if applied:
-            optimizer.step()
-        else:
-            optimizer.zero_grad(set_to_none=False)
+        with span("guard"):
+            applied = all_finite(total, grads)
+        with span("optimizer"):
+            if applied:
+                optimizer.step()
+            else:
+                optimizer.zero_grad(set_to_none=False)
         return total, losses, out, applied
 
     step.model, step.optimizer = model, optimizer

@@ -1,6 +1,6 @@
-"""Observability: profiling hooks, timers, logging helpers."""
+"""Observability: profiling hooks, logging helpers."""
 
 from skghoi_torch.utils.logging import get_logger
-from skghoi_torch.utils.profiling import StepTimer, trace
+from skghoi_torch.utils.profiling import trace
 
-__all__ = ["StepTimer", "trace", "get_logger"]
+__all__ = ["trace", "get_logger"]

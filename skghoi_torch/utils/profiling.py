@@ -1,20 +1,46 @@
-"""Profiling: a torch.profiler trace and wall-clock step timing.
+"""Profiling: a torch.profiler trace, and the program's named spans.
 
-Mirrors ``skghoi_tpu.utils.profiling``: ``trace`` wraps ``torch.profiler``
-(host and, where a card is present, CUDA activity) and writes a Chrome trace
-(open it in ``chrome://tracing`` or Perfetto) into ``log_dir``; ``StepTimer``
-gives HandyTimer-style wall-clock spans with summary stats.  The timer reads
-the host clock only: a caller that times work on the card synchronises
-(``torch.cuda.synchronize()``) before the span ends.
+``trace`` mirrors ``skghoi_tpu.utils.profiling.trace``: it wraps
+``torch.profiler`` (host and, where a card is present, CUDA activity) and
+writes a Chrome trace (open it in ``chrome://tracing`` or Perfetto) into
+``log_dir``.
+
+``span(name)`` marks one layer of the program as a ``record_function``
+range named ``skghoi.<name>``, in whatever ``torch.profiler`` session is
+recording: ``trace``, ``perf_report --trace`` or a benchmark's traced
+window, on the clock of the device rows beside it.  With no session
+recording it returns one shared ``nullcontext``: one boolean check, no
+dispatcher call, no allocation.  Spans mark layer boundaries only, never
+the steps of a per-item loop.  Every name is in ``SPANS``.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-import time
-from collections import deque
-from typing import Deque, Optional
+
+import torch
+from torch.autograd import _profiler_enabled
+from torch.profiler import ProfilerActivity, profile, record_function
+
+SPANS = (
+    "to_device",  # data.factory.to_device: the batch to the card
+    "forward",  # parallel.train_step: the model call
+    "resnet50",  # models.resnet.ResNet50.forward, shared by the SCG and the detectors
+    "filter",  # models.interaction_head.filter_detections, its NMS included
+    "backward",  # parallel.train_step: total.backward()
+    "guard",  # parallel.train_step: the NaN guard's host read
+    "optimizer",  # parallel.train_step: AdamW's step, or the skip's zero_grad
+)
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """The range ``skghoi.<name>`` while a profiler records, else a no-op."""
+    if _profiler_enabled():
+        return record_function(f"skghoi.{name}")
+    return _OFF
 
 
 @contextlib.contextmanager
@@ -30,9 +56,6 @@ def trace(log_dir: str, enabled: bool = True):
     if not enabled:
         yield
         return
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
@@ -43,32 +66,3 @@ def trace(log_dir: str, enabled: bool = True):
             torch.cuda.synchronize()
     n = len([f for f in os.listdir(log_dir) if f.startswith(f"trace_{os.getpid()}_")])
     prof.export_chrome_trace(os.path.join(log_dir, f"trace_{os.getpid()}_{n}.json"))
-
-
-class StepTimer:
-    """Rolling wall-clock timer (HandyTimer replacement, ``utils.py:232-246``)."""
-
-    def __init__(self, maxlen: int = 100):
-        self._durations: Deque[float] = deque(maxlen=maxlen)
-        self._start: Optional[float] = None
-
-    def __enter__(self):
-        self._start = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        self._durations.append(time.perf_counter() - self._start)
-        self._start = None
-
-    def __getitem__(self, i: int) -> float:
-        return list(self._durations)[i]
-
-    def mean(self) -> float:
-        return sum(self._durations) / max(len(self._durations), 1)
-
-    def last(self) -> float:
-        return self._durations[-1] if self._durations else 0.0
-
-    def rate(self, units_per_step: float = 1.0) -> float:
-        m = self.mean()
-        return units_per_step / m if m > 0 else 0.0

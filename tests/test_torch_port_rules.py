@@ -13,6 +13,9 @@ a class of that name, is an ``__init__`` argument there, or is listed with
 its reason (checked on the sources of both, by AST).  ``RoIAlignFunction``'s
 backward reaches no ``roi_align_adjoint``, ``matmul`` or ``einsum`` through
 any helper of its module (by AST): on the card it runs the adjoint kernel.
+Every ``span`` of the port names an entry of ``utils.profiling.SPANS`` and
+each entry is opened; none sits in a loop under ``ops/``; only
+``utils/profiling.py`` calls ``record_function`` (by AST).
 """
 
 import ast
@@ -36,6 +39,7 @@ from skghoi_torch.tools import (bench_io, cache_results, demo, extract_roi_featu
                                 preprocess_detections, pretrain_transh_hoi, stage_profile,
                                 test_hicodet, train_detector, train_hicodet, train_kge,
                                 visualise_detections)
+from skghoi_torch.utils.profiling import SPANS
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "skghoi_tpu", "__graft_entry__", "bench",
@@ -506,3 +510,68 @@ def test_jax_fields_rule_sees_what_it_checks():
                 or f in {("AdaMixerDetector", "dtype"), ("FPNDetector", "dtype")}}
     port["DETR"] = port["DETR"] - {"dtype"}
     assert _missing(used, port)[0] == ["DETR.dtype"]
+
+
+# --- the program's named spans ----------------------------------------------------
+
+SPAN_CALLS = ("span", "record_function")
+
+
+def _span_faults(sources):
+    """What breaks the span rule in ``{path under skghoi_torch/: source}``:
+    a ``span`` whose name is not a literal entry of ``SPANS``, an entry no
+    ``span`` opens, a ``span`` or ``record_function`` inside a loop under
+    ``ops/``, and a ``record_function`` outside ``utils/profiling.py``."""
+    faults, opened = [], set()
+    for path, text in sorted(sources.items()):
+        tree = ast.parse(text, filename=path)
+        looped = set()
+        if path.startswith("ops/"):
+            for loop in ast.walk(tree):
+                if isinstance(loop, (ast.For, ast.AsyncFor, ast.While)):
+                    looped |= {id(n) for stmt in loop.body + loop.orelse for n in ast.walk(stmt)}
+        for node in ast.walk(tree):
+            name = _callee(node) if isinstance(node, ast.Call) else None
+            if name not in SPAN_CALLS:
+                continue
+            where = f"{path}:{node.lineno}"
+            if id(node) in looped:
+                faults.append(f"{where}: {name} in a loop")
+            if name == "record_function" and path != "utils/profiling.py":
+                faults.append(f"{where}: record_function outside utils/profiling.py")
+            if name == "span":
+                arg = node.args[0] if node.args else None
+                if isinstance(arg, ast.Constant) and arg.value in SPANS:
+                    opened.add(arg.value)
+                else:
+                    faults.append(f"{where}: span not in SPANS")
+    return faults + [f"SPANS entry {s!r} opened nowhere" for s in SPANS if s not in opened]
+
+
+def test_spans_are_named_once_and_kept_out_of_loops():
+    """Every ``span`` of the port names an entry of ``utils.profiling.SPANS``,
+    every entry is opened somewhere, no span sits in a loop under ``ops/``,
+    and only ``utils/profiling.py`` calls ``record_function``."""
+    port = ROOT / "skghoi_torch"
+    sources = {str(p.relative_to(port)): p.read_text() for p in port.rglob("*.py")}
+    assert _span_faults(sources) == []
+
+
+def test_span_rule_sees_what_it_checks():
+    """A span in NMS's loop, a name outside ``SPANS``, a direct
+    ``record_function`` and the entries left unopened are each refused."""
+    planted = {
+        "ops/boxes.py": ("def nms_keep(n):\n"
+                         "    for j in range(n):\n"
+                         "        with span('filter'):\n"
+                         "            pass\n"),
+        "models/head.py": ("def head(x):\n"
+                           "    with torch.profiler.record_function('head'):\n"
+                           "        with span('graph_head'):\n"
+                           "            return x\n"),
+    }
+    assert _span_faults(planted) == [
+        "models/head.py:2: record_function outside utils/profiling.py",
+        "models/head.py:3: span not in SPANS",
+        "ops/boxes.py:3: span in a loop",
+    ] + [f"SPANS entry {s!r} opened nowhere" for s in SPANS if s != "filter"]

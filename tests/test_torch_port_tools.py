@@ -8,8 +8,8 @@ boxes and the JPEG's pixels equal to JAX's), ``demo --cpu --synthetic`` with
 JAX weights converted by ``weights.to_state_dict`` (pairs, verbs and
 objects equal, scores within 1e-4), and ``extract_roi_features`` with the
 converted JAX backbone (``.npz`` keys, boxes, labels, scores and ``n_h``
-equal; features within 1e-4 of the largest).  ``utils``: ``StepTimer``
-under a patched clock, ``get_logger`` off rank 0, ``trace`` on the CPU.
+equal; features within 1e-4 of the largest).  ``utils``: ``get_logger``
+off rank 0, ``trace`` on the CPU.
 
 The JAX demo and extraction tools run their networks eagerly, which on the
 CPU compiles every primitive on its own (~50 s for the SCG's ``init``,
@@ -25,7 +25,6 @@ import os
 import shutil
 import sys
 import tempfile
-import time
 
 import jax
 import numpy as np
@@ -50,7 +49,6 @@ from skghoi_tpu.tools import navigator as jax_navigator
 from skghoi_tpu.tools import visualise_and_cache as jax_visualise_and_cache
 from skghoi_tpu.tools import visualise_detections as jax_visualise_detections
 from skghoi_tpu.train.checkpoint import save_checkpoint as jax_save_checkpoint
-from skghoi_tpu.utils import profiling as jax_profiling
 from skghoi_torch.data import hico_meta, text_label
 from skghoi_torch.data.factory import DataFactory, HOILoader
 from skghoi_torch.data.synthetic import make_synthetic_hicodet
@@ -59,7 +57,7 @@ from skghoi_torch.tools import (cache_results, demo, extract_roi_features, gener
                                 hicodet_split, kge_relation_stats, kge_results_table, navigator,
                                 train_kge, visualise_and_cache, visualise_detections)
 from skghoi_torch.train.checkpoint import save_checkpoint
-from skghoi_torch.utils import StepTimer, get_logger, trace
+from skghoi_torch.utils import get_logger, trace
 from skghoi_torch.utils import logging as port_logging
 from skghoi_torch.weights import to_state_dict
 
@@ -366,25 +364,6 @@ def test_extract_roi_features_matches_jax(tmp_path, capsys, monkeypatch):
 
 
 # --- utils ----------------------------------------------------------------
-
-def test_step_timer_matches_jax(monkeypatch):
-    ticks = [0.0, 0.5, 1.0, 1.25, 2.0, 4.0, 10.0, 10.5]
-
-    def run(cls):
-        clock = iter(ticks)
-        monkeypatch.setattr(time, "perf_counter", lambda: next(clock))
-        timer = cls(maxlen=3)
-        empty = (timer.mean(), timer.last(), timer.rate())
-        for _ in range(4):
-            with timer:
-                pass
-        return empty, timer.mean(), timer.last(), timer.rate(8), [timer[i] for i in range(3)], \
-            timer[-1]
-
-    got, want = run(StepTimer), run(jax_profiling.StepTimer)
-    assert got == want
-    assert got[0] == (0.0, 0.0, 0.0) and got[4] == [0.25, 2.0, 0.5]
-
 
 def test_logger_silenced_off_rank_0(monkeypatch):
     monkeypatch.setattr(port_logging, "is_main", lambda: False)
