@@ -57,9 +57,11 @@ Phases, each reporting on its own lines; any failure exits non-zero:
    AdamW at the reference lr; one warm-up step, then ``TRAIN_STEPS`` timed
    steps with the counts set to 0 just before.  It checks that every loss
    is finite and every step applied, that the kernel and its adjoint kernel
-   ran once per step, that the stem and ``layer1`` are bit-for-bit unchanged and
-   that both optimizer groups moved; prints per-step ms, train img/s, peak
-   memory, the losses, and what the NaN guard's host read costs.
+   ran once per step, that the FrozenBN kernels ran at every site forward
+   and at each ``layer2-4`` site backward (53 + 42 a step), that the stem
+   and ``layer1`` are bit-for-bit unchanged and that both optimizer groups
+   moved; prints per-step ms, train img/s, peak memory, the losses, and
+   what the NaN guard's host read costs.
    ``--profile`` adds one traced train step (device busy and idle share, top
    operations).
 8. The CLI path: synthetic HICO-DET written by ``data.synthetic`` (16
@@ -127,10 +129,11 @@ Phases, each reporting on its own lines; any failure exits non-zero:
     ``.pt``, then ``preprocess_detections.main`` over synthetic HICO-DET
     (8 landscape 120x160 images, the ones ``train_hicodet --synthetic``
     trains on, and 4 portrait 640x480), float32, ``--score-thresh
-    0.001`` (random weights give class probabilities near 1/91): images/s
-    and one kernel launch an image.  For one image of each canvas: ms of
-    each stage (backbone+FPN, RPN with its NMS, RoI heads, class NMS), NMS
-    steps, one traced image's device ops and idle share; the kernel against
+    0.001`` (random weights give class probabilities near 1/91): images/s,
+    one kernel launch an image and one FrozenBN forward launch a site (53
+    an image).  For one image of each canvas: ms of each stage
+    (backbone+FPN, RPN with its NMS, RoI heads, class NMS), NMS steps, one
+    traced image's device ops and idle share; the kernel against
     its plain version on the real ``[1, 1000, 4]`` proposals (random weights
     put them all on P2) and on the same proposals with a quarter rescaled
     onto each of P2..P5, each timed cold and warm against ``roi_bound_ms``;
@@ -201,9 +204,21 @@ Phases, each reporting on its own lines; any failure exits non-zero:
     the ``.mat`` files ``cache_results --dataset hicodet`` writes with
     ``ckpt_02.pt``, ``text_label``).  Without matplotlib the overlays and
     plots are left out and ``"matplotlib": false`` is printed.
+15. The FrozenBatchNorm kernels (``ops/frozen_bn_cuda.py``) over the
+    ResNet-50 body's 53 sites at the detect shape (bf16, 832x1344, batch 8;
+    :func:`frozen_bn_sites`): each site's forward kernel, then its backward
+    kernel, launched alone after an L2 flush and queued behind a device
+    sleep, timed by CUDA events, summed over the sites; the plain eager
+    composition (``frozen_bn_plain``, ``frozen_bn_backward_plain``) the same
+    way; each beside its byte bound.  First, at every site, the output and
+    both gradients must equal the plain composition's (``torch.equal``).
+    The kernels line's FrozenBN entry gains the launch counts of phases 7
+    and 12 (a train step, an image).  Alone: ``python3 -c "import
+    chip_smoke as c; c.phase_frozen_bn()"``.
 
 It prints the train step's, the CLI path's, the KGE, the V-COCO/TransH, the
-data-parallel, the detection, the detectors' and the tools' JSON lines, the
+data-parallel, the detection, the detectors', the tools' and the FrozenBN
+kernels' JSON lines, the
 kernels' JSON line (the forward kernel and its adjoint), the card, then
 ``{"ok": true, "device": ...}`` last.  Without a
 CUDA device it exits with code 2 and prints no result.
@@ -812,6 +827,131 @@ def phase_adjoint(main_boxes):
                 **time_adjoint(main_boxes))
 
 
+def frozen_bn_sites(batch: int = BATCH, canvas=CANVAS, dtype=torch.bfloat16):
+    """The ResNet-50 body's FrozenBatchNorm sites in the order
+    ``ResNet50.forward`` calls them on a ``[batch, 3, *canvas]`` input, from a
+    forward on meta tensors: ``(name, shape, residual, relu)`` each, ``name``
+    the module's (``layer2-4`` train in the SCG, ``frozen_stages=1``)."""
+    from skghoi_torch.models.resnet import FrozenBatchNorm, ResNet50
+
+    with torch.device("meta"):
+        model = ResNet50(dtype=dtype)
+    sites = []
+
+    def recorder(name):
+        def hook(module, args, kwargs):
+            bound = dict(zip(("x", "residual", "relu"), args), **kwargs)
+            sites.append((name, tuple(bound["x"].shape), bound.get("residual") is not None,
+                          bool(bound.get("relu", False))))
+        return hook
+
+    for name, m in model.named_modules():
+        if isinstance(m, FrozenBatchNorm):
+            m.register_forward_pre_hook(recorder(name), with_kwargs=True)
+    model(torch.empty(batch, 3, *canvas, device="meta"))
+    return sites
+
+
+def frozen_bn_launches_per_step():
+    """FrozenBN kernel launches an SCG train step makes (``frozen_stages=1``):
+    one forward at every site, one backward at each site of the trainable
+    ``layer2-4``."""
+    sites = frozen_bn_sites()
+    return len(sites), sum(n.startswith(("layer2.", "layer3.", "layer4.")) for n, *_ in sites)
+
+
+def frozen_bn_bytes(sites, elem: int = 2, backward: bool = False) -> int:
+    """Bytes the sites must move, each tensor read or written once: forward,
+    the input and output (and the residual); backward, the output's gradient
+    and the input's (and the output, where the ReLU masks, and the
+    residual's gradient)."""
+    total = 0
+    for _, shape, residual, relu in sites:
+        tensors = 2 + (residual and relu) + relu if backward else 2 + residual
+        total += tensors * math.prod(shape) * elem
+    return total
+
+
+def phase_frozen_bn():
+    """Phase 15: the FrozenBatchNorm kernels over the body's 53 sites at the
+    detect shape, forward and backward, against their byte bounds and the
+    plain composition (module docstring)."""
+    from skghoi_torch.ops.frozen_bn_cuda import (frozen_bn_backward_plain, frozen_bn_cuda,
+                                                 frozen_bn_plain)
+
+    frozen_bn_cuda.build()
+    log(f"[frozen_bn] built {frozen_bn_cuda.source.name} in {frozen_bn_cuda.build_seconds:.2f} s")
+    for line in frozen_bn_cuda.build_log.splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"[frozen_bn build] {line.strip()}")
+    sites = frozen_bn_sites()
+    g = torch.Generator(device="cuda").manual_seed(15)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")  # 5x the 50 MB L2
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def cold_ms(fn, reps=5):
+        """Median ms of ``fn`` after an L2 flush, queued behind a device sleep."""
+        times = []
+        for _ in range(reps):
+            flush.zero_()
+            torch.cuda._sleep(20_000_000)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        return sorted(times)[reps // 2]
+
+    ms = dict(fwd=0.0, bwd=0.0, plain_fwd=0.0, plain_bwd=0.0)
+    mismatches = []
+    with torch.no_grad():
+        for name, shape, residual, relu in sites:
+            x = torch.randn(shape, generator=g, device="cuda").bfloat16().contiguous(
+                memory_format=torch.channels_last)
+            res = torch.randn_like(x).contiguous(memory_format=torch.channels_last) \
+                if residual else None
+            inv = torch.rand(shape[1], generator=g, device="cuda").add_(0.5).bfloat16()
+            shift = torch.randn(shape[1], generator=g, device="cuda").mul_(0.1).bfloat16()
+            y = frozen_bn_cuda(x, inv, shift, res, relu)
+            gy = torch.randn_like(x).contiguous(memory_format=torch.channels_last)
+            out = y if relu else None
+            got = frozen_bn_cuda.backward(gy, inv, out, residual)
+            want = frozen_bn_backward_plain(gy, inv, out, residual)
+            for what, a, b in (("output", y, frozen_bn_plain(x, inv, shift, res, relu)),
+                               ("input gradient", got[0], want[0]),
+                               ("residual gradient", got[1], want[1])):
+                if (a is None) != (b is None) or (a is not None and not torch.equal(a, b)):
+                    mismatches.append(f"{name} {shape} {what}")
+            del got, want
+            ms["fwd"] += cold_ms(lambda: frozen_bn_cuda(x, inv, shift, res, relu))
+            ms["plain_fwd"] += cold_ms(lambda: frozen_bn_plain(x, inv, shift, res, relu))
+            ms["bwd"] += cold_ms(lambda: frozen_bn_cuda.backward(gy, inv, out, residual))
+            ms["plain_bwd"] += cold_ms(lambda: frozen_bn_backward_plain(gy, inv, out, residual))
+            del x, res, y, gy, out
+    if mismatches:
+        raise AssertionError(f"frozen_bn: the kernels differ from the plain composition at "
+                             f"{len(mismatches)} places: {mismatches}")
+    fwd_bytes, bwd_bytes = frozen_bn_bytes(sites), frozen_bn_bytes(sites, backward=True)
+    bound = dict(fwd=fwd_bytes / HBM_BYTES_PER_S * 1e3, bwd=bwd_bytes / HBM_BYTES_PER_S * 1e3)
+    result = dict(name="frozen_bn", route="cuda", source="skghoi_torch/csrc/frozen_bn.cu",
+                  replaces="none (XLA fuses FrozenBN, residual add and ReLU into the convolution "
+                           "on the TPU)", sites=len(sites), dtype="bfloat16",
+                  shape=f"{BATCH}x{CANVAS[0]}x{CANVAS[1]}", fwd_bytes=fwd_bytes,
+                  bwd_bytes=bwd_bytes,
+                  **{f"{k}_ms": v for k, v in ms.items()},
+                  **{f"{k}_bound_ms": v for k, v in bound.items()},
+                  fwd_share=bound["fwd"] / ms["fwd"], bwd_share=bound["bwd"] / ms["bwd"])
+    log(f"[frozen_bn] {len(sites)} sites: output, input gradient and residual gradient equal "
+        f"the plain composition's (torch.equal)")
+    log(f"[frozen_bn] {len(sites)} sites, bf16 {BATCH}x{CANVAS[0]}x{CANVAS[1]}, each alone after "
+        f"an L2 flush: forward {ms['fwd']:.4f} ms (bound {bound['fwd']:.4f} ms, "
+        f"{fwd_bytes / 1e9:.3f} GB: {result['fwd_share']:.1%}), plain {ms['plain_fwd']:.4f} ms; "
+        f"backward {ms['bwd']:.4f} ms (bound {bound['bwd']:.4f} ms, {bwd_bytes / 1e9:.3f} GB: "
+        f"{result['bwd_share']:.1%}), plain {ms['plain_bwd']:.4f} ms; card {card_line()}")
+    print(json.dumps({"frozen_bn": result}), flush=True)
+    return result
+
+
 def phase_train_parity():
     """The float32 train step on the card against the same step on the CPU."""
     from skghoi_torch.entry import build_model, make_batch, verb_mask
@@ -851,6 +991,7 @@ def phase_train_parity():
 def phase_train(profile_dir):
     """The training main path through ``entry.train_entry``."""
     from skghoi_torch.entry import train_entry
+    from skghoi_torch.ops.frozen_bn_cuda import frozen_bn_cuda
     from skghoi_torch.ops.roi_align_cuda import RoIAlignFunction, roi_align_cuda
 
     step, (batch, generator) = train_entry(device="cuda")
@@ -866,6 +1007,7 @@ def phase_train(profile_dir):
     torch.cuda.reset_peak_memory_stats()
     roi_align_cuda.launches = roi_align_cuda.adjoint_launches = 0
     RoIAlignFunction.backward_calls = 0
+    frozen_bn_cuda.launches = frozen_bn_cuda.backward_launches = 0
     times, rows = [], []
     for _ in range(TRAIN_STEPS):
         t0 = time.perf_counter()
@@ -875,6 +1017,7 @@ def phase_train(profile_dir):
         rows.append((applied, {k: float(v) for k, v in losses.items()}))
     launches, adjoints = roi_align_cuda.launches, RoIAlignFunction.backward_calls
     adjoint_launches = roi_align_cuda.adjoint_launches
+    bn_launches = frozen_bn_cuda.launches, frozen_bn_cuda.backward_launches
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
     if not all(a for a, _ in rows) or not all(math.isfinite(v) for _, l in rows for v in l.values()):
@@ -882,6 +1025,10 @@ def phase_train(profile_dir):
     if launches != TRAIN_STEPS or adjoints != TRAIN_STEPS or adjoint_launches != TRAIN_STEPS:
         raise AssertionError(f"train: {launches} kernel launches, {adjoints} adjoints and "
                              f"{adjoint_launches} adjoint kernel launches in {TRAIN_STEPS} steps")
+    want_bn = tuple(n * TRAIN_STEPS for n in frozen_bn_launches_per_step())
+    if bn_launches != want_bn:
+        raise AssertionError(f"train: {bn_launches} frozen_bn forward and backward launches in "
+                             f"{TRAIN_STEPS} steps, expected {want_bn}")
     for n, p in model.named_parameters():
         if n in frozen and not torch.equal(p, frozen[n]):
             raise AssertionError(f"train: frozen parameter {n} changed")
@@ -894,7 +1041,8 @@ def phase_train(profile_dir):
         f"{[g['lr'] for g in opt.param_groups]}: {TRAIN_STEPS} steps, per step ms "
         f"{[round(t * 1e3, 3) for t in times]}, {BATCH * TRAIN_STEPS / sum(times):.2f} train img/s "
         f"(median {BATCH / median:.2f}), peak memory {peak_gib:.2f} GiB, roi_align launches "
-        f"{launches}, adjoints {adjoints} (adjoint kernel launches {adjoint_launches}), n_h "
+        f"{launches}, adjoints {adjoints} (adjoint kernel launches {adjoint_launches}), frozen_bn "
+        f"launches {bn_launches[0]} forward + {bn_launches[1]} backward, n_h "
         f"{out.n_h.tolist()} n {out.n.tolist()}")
     for i, (_, l) in enumerate(rows):
         log(f"[train] step {i + 1} losses {l}")
@@ -914,7 +1062,9 @@ def phase_train(profile_dir):
         f"time it causes), device {update_ms:.3f} ms (CUDA events)")
     result = dict(step_ms=[t * 1e3 for t in times], img_per_s=BATCH * TRAIN_STEPS / sum(times),
                   median_img_per_s=BATCH / median, peak_gib=peak_gib, launches=launches,
-                  adjoints=adjoints, adjoint_launches=adjoint_launches, guard_issue_ms=issue_ms,
+                  adjoints=adjoints, adjoint_launches=adjoint_launches,
+                  frozen_bn_launches=bn_launches[0] / TRAIN_STEPS,
+                  frozen_bn_backward_launches=bn_launches[1] / TRAIN_STEPS, guard_issue_ms=issue_ms,
                   update_ms=update_ms)
     if profile_dir:
         result.update(profile_train_step(step, batch, generator, profile_dir, median))
@@ -2117,6 +2267,7 @@ def phase_detect():
 
     from skghoi_torch.data.synthetic import make_synthetic_hicodet
     from skghoi_torch.detect.frcnn import FasterRCNN, load_torch_fasterrcnn, random_state_dict
+    from skghoi_torch.ops.frozen_bn_cuda import frozen_bn_cuda
     from skghoi_torch.ops.roi_align_cuda import roi_align_cuda
     from skghoi_torch.tools import preprocess_detections, train_hicodet
     from skghoi_torch.tools.preprocess_detections import detector_input
@@ -2137,6 +2288,7 @@ def phase_detect():
         cache = os.path.join(root, "detections")
         n_images, wall, per_image = 0, 0.0, []
         roi_align_cuda.launches = 0
+        frozen_bn_cuda.launches = frozen_bn_cuda.backward_launches = 0
         for part, n in (("train2015", DET_TRAIN_IMAGES), ("test2015", DET_PORTRAIT_IMAGES)):
             t0 = time.perf_counter()
             run_cli(preprocess_detections.main, [
@@ -2156,15 +2308,19 @@ def phase_detect():
                 raise AssertionError(f"preprocess_detections {part}: labels outside HICO's 80")
             per_image += [len(d["boxes"]) for d in dets]
         launches = roi_align_cuda.launches
+        bn_launches = frozen_bn_cuda.launches, frozen_bn_cuda.backward_launches
         if launches != n_images:
             raise AssertionError(f"detector: {launches} roi_align launches for {n_images} images")
+        if bn_launches != (frozen_bn_launches_per_step()[0] * n_images, 0):
+            raise AssertionError(f"detector: {bn_launches} frozen_bn forward and backward launches "
+                                 f"for {n_images} images")
         out.update(images=n_images, images_per_s=n_images / wall, cli_s=wall, launches=launches,
-                   detections_per_image=per_image)
+                   frozen_bn_launches=bn_launches[0] / n_images, detections_per_image=per_image)
         log(f"[detect] preprocess_detections --score-thresh {DET_SCORE_THRESH}, {n_images} images "
             f"({DET_TRAIN_IMAGES} 120x160 -> 832x1344 canvas, {DET_PORTRAIT_IMAGES} 640x480 -> "
             f"1344x832), float32: {wall:.3f} s, {out['images_per_s']:.3f} images/s with the "
             f"tool's host resize and JSON writes (one model load a partition); roi_align launches "
-            f"{launches}")
+            f"{launches}, frozen_bn launches {bn_launches[0]}")
 
         card = FasterRCNN(box_score_thresh=float(DET_SCORE_THRESH))
         card.load_state_dict(load_torch_fasterrcnn(sd), strict=True)
@@ -3318,7 +3474,7 @@ def main() -> int:
 
 
 def run_phases(args) -> int:
-    """Phases 1-14 in order; the result lines last."""
+    """Phases 1-15 in order; the result lines last."""
     from skghoi_torch.entry import make_batch
     from skghoi_torch.models.interaction_head import filter_detections
     from skghoi_torch.ops.roi_align_cuda import RoIAlignKernel, roi_align_cuda
@@ -3375,6 +3531,10 @@ def run_phases(args) -> int:
     kernel["launches_extract"] = tools["extract"]["launches"]
     kernel["launches_demo"] = tools["demo"]["launches"]
     kernel["launches_perf_report"] = tools["perf_report_launches"]
+    frozen_bn = phase_frozen_bn()
+    frozen_bn["launches_train"] = train["frozen_bn_launches"]  # a step, the training main path's
+    frozen_bn["backward_launches_train"] = train["frozen_bn_backward_launches"]
+    frozen_bn["launches_frcnn"] = detect["frozen_bn_launches"]  # an image
 
     log(f"[card] {card}")
     print(json.dumps({"train": train}))
@@ -3385,7 +3545,7 @@ def run_phases(args) -> int:
     print(json.dumps({"detect": detect}))
     print(json.dumps({"detectors": stage1}))
     print(json.dumps({"tools": tools}))
-    print(json.dumps({"kernels": [kernel, adjoint]}))
+    print(json.dumps({"kernels": [kernel, adjoint, frozen_bn]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -15,7 +15,7 @@ and which permutes to a contiguous NHWC view for free.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -23,19 +23,25 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from skghoi_torch.models.layers import Conv2d
+from skghoi_torch.ops.frozen_bn_cuda import frozen_bn_act
 from skghoi_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
 
 class FrozenBatchNorm(nn.Module):
-    """BatchNorm over stored statistics, folded into one multiply-add.
+    """BatchNorm over stored statistics, folded into one multiply-add, with the
+    ReLU and the residual add of its site: ``forward(x, residual, relu)`` is
+    ``act(x * inv + shift [+ residual])``, one kernel on the card
+    (:func:`skghoi_torch.ops.frozen_bn_cuda.frozen_bn_act`).
 
     The per-channel constants are computed in the statistics' dtype promoted to
     at least float32: float32 for the float32 buffers every float32 and
     bfloat16 model keeps (as ``skghoi_tpu.models.resnet.FrozenBatchNorm``),
-    float64 once ``.double()`` has made the buffers float64. The activation
-    stays in ``dtype`` (eps 1e-5).
+    float64 once ``.double()`` has made the buffers float64; then they are kept
+    in ``dtype``, as the activation (eps 1e-5).  They are computed again only
+    when a buffer is replaced or written in place (``load_state_dict``,
+    ``.to``, ``.double()``, a ``copy_``), or ``dtype`` or ``eps`` changes.
     """
 
     def __init__(self, channels: int, eps: float = 1e-5, dtype: torch.dtype = torch.float32):
@@ -46,13 +52,33 @@ class FrozenBatchNorm(nn.Module):
         self.register_buffer("bias", torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
+        self._constants = None  # (what they were computed from, those buffers, inv, shift)
 
-    def forward(self, x: Tensor) -> Tensor:
+    def constants(self) -> Tuple[Tensor, Tensor]:
+        """``inv`` and ``shift``, ``[C]`` in ``compute_dtype``."""
+        buffers = (self.weight, self.bias, self.running_mean, self.running_var)
+        try:
+            state = (self.compute_dtype, self.eps,
+                     *[(id(b), b._version, b.dtype, b.device) for b in buffers])
+        except RuntimeError:  # inference tensors keep no version counter: no cache
+            return self._fold()
+        cached = self._constants
+        # Constants made under inference_mode cannot be saved for a backward.
+        if (cached is None or cached[0] != state
+                or (cached[2].is_inference() and not torch.is_inference_mode_enabled())):
+            # The buffers are kept with their ids, so no id can be reused while cached.
+            cached = self._constants = (state, buffers, *self._fold())
+        return cached[2], cached[3]
+
+    def _fold(self) -> Tuple[Tensor, Tensor]:
         ct = torch.promote_types(self.running_var.dtype, torch.float32)
         inv = torch.rsqrt(self.running_var.to(ct) + self.eps) * self.weight.to(ct)
         shift = self.bias.to(ct) - self.running_mean.to(ct) * inv
-        dt = self.compute_dtype
-        return x.to(dt) * inv.to(dt).view(1, -1, 1, 1) + shift.to(dt).view(1, -1, 1, 1)
+        return inv.to(self.compute_dtype), shift.to(self.compute_dtype)
+
+    def forward(self, x: Tensor, residual: Optional[Tensor] = None, relu: bool = False) -> Tensor:
+        inv, shift = self.constants()
+        return frozen_bn_act(x.to(self.compute_dtype), inv, shift, residual, relu)
 
 
 class Bottleneck(nn.Module):
@@ -76,11 +102,10 @@ class Bottleneck(nn.Module):
             )
 
     def forward(self, x: Tensor) -> Tensor:
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = F.relu(self.bn2(self.conv2(y)))
-        y = self.bn3(self.conv3(y))
+        y = self.bn1(self.conv1(x), relu=True)
+        y = self.bn2(self.conv2(y), relu=True)
         residual = x if self.downsample is None else self.downsample(x)
-        return F.relu(y + residual)
+        return self.bn3(self.conv3(y), residual, relu=True)
 
 
 class ResNet50(nn.Module):
@@ -118,7 +143,7 @@ class ResNet50(nn.Module):
     def forward(self, x: Tensor) -> Tuple[Tensor, ...]:
         with span("resnet50"):
             x = x.to(self.compute_dtype).contiguous(memory_format=torch.channels_last)
-            x = F.relu(self.bn1(self.conv1(x)))
+            x = self.bn1(self.conv1(x), relu=True)
             x = F.max_pool2d(x, 3, stride=2, padding=1)
             if self.frozen_stages >= 0:
                 x = x.detach()

@@ -1,1 +1,2 @@
-"""Box numerics, spatial encodings, losses and multi-scale RoIAlign (plain, CUDA, adjoint)."""
+"""Box numerics, spatial encodings, losses, multi-scale RoIAlign (plain, CUDA, adjoint) and the
+FrozenBatchNorm epilogue (plain, CUDA)."""

@@ -31,10 +31,6 @@ tensor never falls back: the kernel launches or the wrapper raises.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import time
 from pathlib import Path
 from typing import Optional, Sequence
@@ -42,15 +38,13 @@ from typing import Optional, Sequence
 import torch
 
 from skghoi_torch.constants import FPN_STRIDES, ROI_POOL_SIZE
+from skghoi_torch.ops.nvcc import BUILD_DIR, build_library
 from skghoi_torch.ops.roi_align import fpn_level_assignment, multiscale_roi_align
 
 Tensor = torch.Tensor
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "roi_align.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # The library's C entry points: forward and adjoint, float32 and bfloat16.
 ENTRY_POINTS = ("skghoi_roi_align_fwd_f32", "skghoi_roi_align_fwd_bf16",
@@ -59,14 +53,6 @@ ENTRY_POINTS = ("skghoi_roi_align_fwd_f32", "skghoi_roi_align_fwd_bf16",
 # boxes, levels, out (forward) or cotangent (adjoint), n_images, n_boxes, c,
 # stream.
 _ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-
-
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    found = shutil.which("nvcc") or os.path.join(cuda_home, "bin", "nvcc")
-    if not os.path.exists(found):
-        raise RuntimeError(f"nvcc not found (looked on PATH and in {cuda_home}/bin)")
-    return found
 
 
 class RoIAlignKernel:
@@ -86,19 +72,8 @@ class RoIAlignKernel:
         """Compile (once per source content) and load the library."""
         if self._lib is not None:
             return self._lib
-        digest = hashlib.sha256(self.source.read_bytes() + " ".join(NVCC_FLAGS).encode())
-        lib_path = self.build_dir / f"libroi_align_{digest.hexdigest()[:16]}.so"
         t0 = time.perf_counter()
-        if not lib_path.exists():
-            self.build_dir.mkdir(parents=True, exist_ok=True)
-            tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)],
-                                  capture_output=True, text=True, check=False)
-            self.build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {self.source}:\n{self.build_log}")
-            os.replace(tmp, lib_path)
-        lib = ctypes.CDLL(str(lib_path))
+        lib, self.build_log = build_library(self.source, self.build_dir, "roi_align")
         for name in ENTRY_POINTS:
             fn = getattr(lib, name, None)
             if fn is None:  # an older source, timed beside this one, may have the forward only

@@ -109,7 +109,7 @@ def _stem(dt):
             self.bn1 = FrozenBatchNorm(64, dtype=dt)
 
         def forward(self, x):
-            return F.max_pool2d(F.relu(self.bn1(self.conv1(x))), 3, stride=2, padding=1)
+            return F.max_pool2d(self.bn1(self.conv1(x), relu=True), 3, stride=2, padding=1)
 
     return Stem()
 
