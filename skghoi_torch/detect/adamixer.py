@@ -24,6 +24,12 @@ The set loss is DETR's family: the Hungarian matching of each (stage, image)
 runs on the host (:func:`compute_assignments`: one batched cost on the
 device, one copy, then scipy), the loss on the device.  Under data
 parallelism the GT count that normalises it is the sum over all ranks.
+
+Spans (``utils.profiling.span``, open only while a profiler records):
+``decoder`` over :meth:`AdaMixerDecoder.forward`, ``sample`` over each
+stage's :func:`sample_groups`, ``mixing`` over each
+:meth:`AdaptiveMixing.forward` and ``match`` over
+:func:`compute_assignments`.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ from skghoi_torch.models.backbone import DetectorBackbone
 from skghoi_torch.ops.losses import binary_focal_loss_with_logits
 from skghoi_torch.parallel.distributed import world_size
 from skghoi_torch.parallel.mesh import all_reduce_sum
+from skghoi_torch.utils.profiling import span
 from skghoi_torch.weights import init_parameters
 
 Tensor = torch.Tensor
@@ -196,12 +203,13 @@ class AdaptiveMixing(nn.Module):
             lin.bias.copy_(torch.rand(lin.bias.shape, generator=generator) * 2 * bound - bound)
 
     def forward(self, query: Tensor, values: Tensor) -> Tensor:
-        b, n, g, p_in, cg = values.shape
-        m_c = self.channel_mixer(query).reshape(b, n, g, cg, cg)
-        m_s = self.spatial_mixer(query).reshape(b, n, g, self.out_points, p_in)
-        out = F.relu(self.ln_c(torch.einsum("bngpc,bngcd->bngpd", values, m_c)))
-        out = F.relu(self.ln_s(torch.einsum("bngop,bngpc->bngoc", m_s, out)))
-        return self.out_proj(out.reshape(b, n, -1))
+        with span("mixing"):
+            b, n, g, p_in, cg = values.shape
+            m_c = self.channel_mixer(query).reshape(b, n, g, cg, cg)
+            m_s = self.spatial_mixer(query).reshape(b, n, g, self.out_points, p_in)
+            out = F.relu(self.ln_c(torch.einsum("bngpc,bngcd->bngpd", values, m_c)))
+            out = F.relu(self.ln_s(torch.einsum("bngop,bngpc->bngoc", m_s, out)))
+            return self.out_proj(out.reshape(b, n, -1))
 
 
 class SelfAttention(nn.Module):
@@ -281,7 +289,8 @@ class AdaMixerStage(nn.Module):
         w, h = _wh(z, r)
         base = torch.stack([x, y, z], dim=-1)[:, :, None, None, :]
         scale = torch.stack([w, h, torch.ones_like(z)], dim=-1)[:, :, None, None, :]
-        values = sample_groups(levels, base + off * scale)  # [B, N, G, P_in, C/G]
+        with span("sample"):
+            values = sample_groups(levels, base + off * scale)  # [B, N, G, P_in, C/G]
 
         query = self.ln_mix(query + self.adaptive_mixing(query, values))
         query = self.ln_ffn(query + self.ffn2(F.relu(self.ffn1(query))))
@@ -313,37 +322,41 @@ class AdaMixerDecoder(nn.Module):
                                                      ffn_dim=ffn_dim))
 
     def forward(self, pyramid: Sequence[Tensor], image_hw: Tuple[float, float]) -> AdaMixerOutputs:
-        b = pyramid[0].shape[0]
-        ih, iw = image_hw
-        q, d = self.init_content_features.shape
-        query = self.init_content_features[None].expand(b, q, d)
-        init_box = torch.tensor([0.0, 0.0, float(iw), float(ih)], dtype=query.dtype,
-                                device=query.device)
-        xyzr = box_to_xyzr(init_box).expand(b, q, 4)
-        if self.num_level_proj:
-            pyramid = [getattr(self, f"level_proj{i}")(f) for i, f in enumerate(pyramid)]
-        levels = group_pyramid(pyramid, self.groups)
-        all_logits, all_boxes = [], []
-        for s in range(self.num_stages):
-            query, xyzr, logits = getattr(self, f"stage{s}")(levels, query, xyzr)
-            all_logits.append(logits)
-            all_boxes.append(xyzr_to_box(xyzr))
-        return AdaMixerOutputs(torch.stack(all_logits), torch.stack(all_boxes))
+        with span("decoder"):
+            b = pyramid[0].shape[0]
+            ih, iw = image_hw
+            q, d = self.init_content_features.shape
+            query = self.init_content_features[None].expand(b, q, d)
+            init_box = torch.tensor([0.0, 0.0, float(iw), float(ih)], dtype=query.dtype,
+                                    device=query.device)
+            xyzr = box_to_xyzr(init_box).expand(b, q, 4)
+            if self.num_level_proj:
+                pyramid = [getattr(self, f"level_proj{i}")(f) for i, f in enumerate(pyramid)]
+            levels = group_pyramid(pyramid, self.groups)
+            all_logits, all_boxes = [], []
+            for s in range(self.num_stages):
+                query, xyzr, logits = getattr(self, f"stage{s}")(levels, query, xyzr)
+                all_logits.append(logits)
+                all_boxes.append(xyzr_to_box(xyzr))
+            return AdaMixerOutputs(torch.stack(all_logits), torch.stack(all_boxes))
 
 
 class AdaMixerDetector(nn.Module):
     """Backbone + FPN + AdaMixer decoder (the reference's stage-1 detector),
     on ``device`` (default ``cuda``; the CPU only when asked for), with
     weights from seed 0.  Images go in as ``[B, H, W, 3]`` in [0, 1]: the model
-    normalises them itself."""
+    normalises them itself.  ``frozen_stages`` passes to the ResNet-50 as
+    mmdet's (the published recipe freezes the stem and ``layer1``: 1); the
+    default -1 trains every stage, as the JAX package does."""
 
     def __init__(self, num_classes: int = C.HICO_NUM_OBJECTS, num_queries: int = 100,
                  num_stages: int = 6, content_dim: int = 256, groups: int = 4,
                  in_points: int = 32, out_points: int = 128, ffn_dim: int = 2048,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None, frozen_stages: int = -1):
         super().__init__()
         device = resolve_device(device)
-        self.backbone = DetectorBackbone(device="cpu")  # seeded here, then moved
+        # seeded here, then moved
+        self.backbone = DetectorBackbone(device="cpu", frozen_stages=frozen_stages)
         self.decoder = AdaMixerDecoder(num_classes, num_queries, num_stages, content_dim, groups,
                                        in_points, out_points, ffn_dim)
         g = torch.Generator().manual_seed(0)
@@ -420,15 +433,16 @@ def compute_assignments(outputs: AdaMixerOutputs, gt_boxes: Tensor, gt_labels: T
     """Hungarian per (stage, image) -> ``[S, B, G]`` int64 (-1 unmatched).
     The ``[S, B, N, G]`` costs are computed in one batch where the outputs
     lie and copied to the host once; scipy then matches each."""
-    cost = match_cost(outputs.cls_logits.float(), outputs.boxes.float(), gt_boxes[None].float(),
-                      gt_labels[None], image_hw).cpu().numpy()
-    valid = gt_valid.cpu().numpy().astype(bool)
-    s, b = cost.shape[:2]
-    out = np.zeros((s, b, cost.shape[-1]), np.int64)
-    for si in range(s):
-        for bi in range(b):
-            out[si, bi] = hungarian_match(cost[si, bi], valid[bi])
-    return out
+    with span("match"):
+        cost = match_cost(outputs.cls_logits.float(), outputs.boxes.float(),
+                          gt_boxes[None].float(), gt_labels[None], image_hw).cpu().numpy()
+        valid = gt_valid.cpu().numpy().astype(bool)
+        s, b = cost.shape[:2]
+        out = np.zeros((s, b, cost.shape[-1]), np.int64)
+        for si in range(s):
+            for bi in range(b):
+                out[si, bi] = hungarian_match(cost[si, bi], valid[bi])
+        return out
 
 
 def set_loss(outputs: AdaMixerOutputs, assignments: Tensor, gt_boxes: Tensor, gt_labels: Tensor,

@@ -18,10 +18,17 @@ pairs' human boxes (label ``HICO_HUMAN_IDX``) and object boxes.
   ``{"config": ..., "state_dict": ...}``, which ``preprocess_detections
   --detector adamixer`` reads (the JAX tool writes a flax msgpack instead).
 
-The optimiser is plain AdamW over every parameter (lr and weight decay from
-the flags, betas (0.9, 0.999), eps 1e-8: optax's ``adamw``).  The model
-starts from seeded random weights (seed 0).  It runs on ``cuda`` unless
-``--cpu`` is given, and raises without a card.
+The optimiser is plain AdamW over every trainable parameter (lr and weight
+decay from the flags, betas (0.9, 0.999), eps 1e-8: optax's ``adamw``).
+``--frozen-stages`` (AdaMixer only; default -1, every stage trained, as the
+JAX tool) freezes the ResNet-50's stem and ``layer1..k`` as mmdet does: the
+published AdaMixer recipe takes 1.  A frozen parameter gets no gradient, no
+AdamW state and no weight decay.  The model starts from seeded random
+weights (seed 0).  It runs on ``cuda`` unless ``--cpu`` is given, and raises
+without a card.
+
+One batch of the loader is one call of :func:`train_batch`: the batch to
+the device, the ground truth, AdaMixer's de-duplication, and the step.
 
 Under ``torchrun`` it trains data parallel, one process per card (NCCL;
 gloo with ``--cpu``): each rank loads its shard and a batch of
@@ -40,6 +47,7 @@ import numpy as np
 import torch
 
 from skghoi_torch import constants as C
+from skghoi_torch.utils.profiling import span
 
 
 def _first_occurrence_mask(boxes, labels, valid):
@@ -88,6 +96,9 @@ def build_argparser():
     p.add_argument("--in-points", default=32, type=int)
     p.add_argument("--out-points", default=128, type=int)
     p.add_argument("--ffn-dim", default=2048, type=int)
+    p.add_argument("--frozen-stages", default=-1, type=int,
+                   help="AdaMixer: freeze the ResNet-50 stem and layer1..k (mmdet's "
+                        "frozen_stages; the published recipe takes 1; -1 trains all)")
     return p
 
 
@@ -101,23 +112,29 @@ def ground_truth(targets):
 
 
 def adamw(model: torch.nn.Module, lr: float, weight_decay: float) -> torch.optim.AdamW:
-    """optax ``adamw(lr, weight_decay=...)`` over every parameter."""
-    return torch.optim.AdamW(model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                             weight_decay=weight_decay)
+    """optax ``adamw(lr, weight_decay=...)`` over every trainable parameter
+    (a frozen one takes no state and no decay)."""
+    return torch.optim.AdamW([p for p in model.parameters() if p.requires_grad], lr=lr,
+                             betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay)
 
 
 def _apply(model, optimizer, losses: dict):
-    """Backward of the losses' sum, the gradients and the losses averaged
-    over the ranks by one all-reduce, then the AdamW step."""
+    """Backward of the losses' sum, the gradients of the trainable parameters
+    and the losses averaged over the ranks by one all-reduce, then the AdamW
+    step.  A trainable parameter the losses do not reach takes a zero
+    gradient; a frozen one is left alone."""
     from skghoi_torch.parallel.mesh import all_reduce_mean_
 
-    sum(losses.values()).backward()
-    grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in model.parameters()]
-    for p, g in zip(model.parameters(), grads):
-        p.grad = g
-    out = {k: v.detach() for k, v in losses.items()}
-    all_reduce_mean_([*grads, *out.values()])
-    optimizer.step()
+    with span("backward"):
+        sum(losses.values()).backward()
+    with span("optimizer"):
+        params = [p for p in model.parameters() if p.requires_grad]
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+        for p, g in zip(params, grads):
+            p.grad = g
+        out = {k: v.detach() for k, v in losses.items()}
+        all_reduce_mean_([*grads, *out.values()])
+        optimizer.step()
     return out
 
 
@@ -134,7 +151,8 @@ def build_fpn_step(model, optimizer):
         if canvas not in anchors:
             anchors[canvas] = torch.from_numpy(generate_anchors(canvas)).to(images.device)
         optimizer.zero_grad(set_to_none=False)
-        logits, deltas = model(images)
+        with span("forward"):
+            logits, deltas = model(images)
         return _apply(model, optimizer, detector_loss(logits, deltas, anchors[canvas], gt_boxes,
                                                       gt_labels, gt_valid))
 
@@ -151,21 +169,42 @@ def build_adamixer_step(model, optimizer):
 
     def step(images, gt_boxes, gt_labels, gt_valid):
         optimizer.zero_grad(set_to_none=False)
-        out = model(images)
+        with span("forward"):
+            out = model(images)
         hw = (float(images.shape[1]), float(images.shape[2]))
         assignments = adamixer.compute_assignments(out, gt_boxes, gt_labels, gt_valid, hw)
-        return _apply(model, optimizer, adamixer.set_loss(out, torch.from_numpy(assignments),
-                                                          gt_boxes, gt_labels, gt_valid, hw))
+        with span("set_loss"):
+            losses = adamixer.set_loss(out, torch.from_numpy(assignments), gt_boxes, gt_labels,
+                                       gt_valid, hw)
+        return _apply(model, optimizer, losses)
 
     step.model, step.optimizer = model, optimizer
     return step
+
+
+def train_batch(step, batch, device, arch: str) -> dict:
+    """One training step on one collated loader batch (numpy ``HOIBatch``
+    with targets): ``to_device``, the detector's ground truth, for
+    ``arch == "adamixer"`` its de-duplication on the host, then ``step``
+    (:func:`build_fpn_step` or :func:`build_adamixer_step`).  Returns the
+    step's losses, on the device."""
+    from skghoi_torch.data.factory import to_device
+
+    hoi = to_device(batch, device)
+    with span("ground_truth"):
+        gt_boxes, gt_labels, gt_valid = ground_truth(hoi.targets)
+        if arch == "adamixer":
+            gt_valid = torch.from_numpy(_first_occurrence_mask(
+                gt_boxes.cpu().numpy(), gt_labels.cpu().numpy(),
+                gt_valid.cpu().numpy())).to(device)
+    return step(hoi.images, gt_boxes, gt_labels, gt_valid)
 
 
 def main(argv=None):
     """Returns ``{"model", "losses" (one dict a step), "checkpoints"}``."""
     args = build_argparser().parse_args(argv)
 
-    from skghoi_torch.data.factory import DataFactory, HOILoader, to_device
+    from skghoi_torch.data.factory import DataFactory, HOILoader
     from skghoi_torch.device import resolve_device
     from skghoi_torch.parallel import distributed
     from skghoi_torch.parallel.mesh import all_gather_object, all_reduce_max, replicate
@@ -206,7 +245,7 @@ def main(argv=None):
         cfg = dict(num_classes=C.HICO_NUM_OBJECTS, num_queries=args.num_queries,
                    num_stages=args.num_stages, content_dim=args.content_dim, groups=args.groups,
                    in_points=args.in_points, out_points=args.out_points, ffn_dim=args.ffn_dim)
-        model = replicate(AdaMixerDetector(**cfg, device=device))
+        model = replicate(AdaMixerDetector(**cfg, device=device, frozen_stages=args.frozen_stages))
         step = build_adamixer_step(model, adamw(model, args.lr, args.weight_decay))
     else:
         from skghoi_torch.detect.detector import FPNDetector
@@ -223,13 +262,7 @@ def main(argv=None):
         batches = iter(loader)
         for _ in range(steps):
             batch = next(batches, (batch, None))[0]
-            hoi = to_device(batch, device)
-            gt_boxes, gt_labels, gt_valid = ground_truth(hoi.targets)
-            if args.arch == "adamixer":
-                gt_valid = torch.from_numpy(_first_occurrence_mask(
-                    gt_boxes.cpu().numpy(), gt_labels.cpu().numpy(),
-                    gt_valid.cpu().numpy())).to(device)
-            losses = step(hoi.images, gt_boxes, gt_labels, gt_valid)
+            losses = train_batch(step, batch, device, args.arch)
             it += 1
             if it % args.print_interval == 0:
                 losses = {k: v.item() for k, v in losses.items()}

@@ -25,12 +25,18 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 SPANS = (
     "to_device",  # data.factory.to_device: the batch to the card
-    "forward",  # parallel.train_step: the model call
+    "forward",  # parallel.train_step and tools.train_detector: the model call
     "resnet50",  # models.resnet.ResNet50.forward, shared by the SCG and the detectors
     "filter",  # models.interaction_head.filter_detections, its NMS included
-    "backward",  # parallel.train_step: total.backward()
+    "backward",  # parallel.train_step and tools.train_detector: the losses' backward
     "guard",  # parallel.train_step: the NaN guard's host read
-    "optimizer",  # parallel.train_step: AdamW's step, or the skip's zero_grad
+    "optimizer",  # parallel.train_step and tools.train_detector: AdamW's step
+    "decoder",  # detect.adamixer.AdaMixerDecoder.forward
+    "sample",  # detect.adamixer: each stage's sample_groups
+    "mixing",  # detect.adamixer.AdaptiveMixing.forward
+    "match",  # detect.adamixer.compute_assignments: the costs, their copy, scipy
+    "ground_truth",  # tools.train_detector.train_batch: the GT, AdaMixer's host de-duplication
+    "set_loss",  # tools.train_detector: the assignments to the card, AdaMixer's set loss
 )
 
 _OFF = contextlib.nullcontext()

@@ -77,7 +77,11 @@ def _flags(parser):
 
 
 def test_same_flags_and_defaults():
-    assert _flags(train_detector.build_argparser()) == _flags(jax_train_detector.build_argparser())
+    """The JAX tool's flags and defaults, and one of the port's own:
+    ``--frozen-stages``, whose default -1 trains every stage as the JAX tool does."""
+    port = _flags(train_detector.build_argparser())
+    assert port.pop("frozen_stages") == (("--frozen-stages",), -1, int, None, None)
+    assert port == _flags(jax_train_detector.build_argparser())
 
 
 def test_first_occurrence_mask_equals_jax():
