@@ -159,6 +159,7 @@ Phases, each reporting on its own lines; any failure exits non-zero:
     ``decode_detections`` on one image; AdaMixer (100 queries, 6 stages,
     content 256, 4 groups, 32/128 points, FFN 2048) trained the same way
     (the spans of ``hoibench``'s ``adamixer_r50.train_b4`` split its step);
+    its train steps launch the sampling kernels once each way a stage;
     card against CPU at init and with the trained weights (outputs within
     ``S1_ADAMIXER_TOL``, the set loss on the CPU's assignments fed to both,
     and in float64 the pyramids within ``S1_PYR64_TOL``, then the backbone's
@@ -215,10 +216,23 @@ Phases, each reporting on its own lines; any failure exits non-zero:
     The kernels line's FrozenBN entry gains the launch counts of phases 7
     and 12 (a train step, an image).  Alone: ``python3 -c "import
     chip_smoke as c; c.phase_frozen_bn()"``.
+16. AdaMixer's sampling kernels (``ops/adamixer_sample_cuda.py``) at the
+    training cell's shapes (batch 4, 100 queries x 4 groups x 32 points, 64
+    channels a group) on the four levels of each canvas, the points drawn as
+    a stage draws them, some past a border (:func:`sample_inputs`): the
+    forward kernel ``torch.equal`` to the eager route in float32 and
+    float64, the adjoint kernel within ``SAMPLE_ADJOINT_TOL`` of autograd
+    through the eager route; each kernel alone after an L2 flush (device
+    time from a trace) against its byte bound (:func:`sample_bytes`: the
+    distinct tap cells counted from the points), beside the plain versions;
+    the launch counters; one decoder forward and backward at batch 4, one
+    launch each way a stage.  The kernels line's sampling entry gains the
+    launches a step of phase 13b's train steps, the main path's.  Alone:
+    ``python3 -c "import chip_smoke as c; c.phase_adamixer_sample()"``.
 
 It prints the train step's, the CLI path's, the KGE, the V-COCO/TransH, the
-data-parallel, the detection, the detectors', the tools' and the FrozenBN
-kernels' JSON lines, the
+data-parallel, the detection, the detectors', the tools', the FrozenBN
+kernels' and the sampling kernels' JSON lines, the
 kernels' JSON line (the forward kernel and its adjoint), the card, then
 ``{"ok": true, "device": ...}`` last.  Without a
 CUDA device it exits with code 2 and prints no result.
@@ -949,6 +963,261 @@ def phase_frozen_bn():
         f"backward {ms['bwd']:.4f} ms (bound {bound['bwd']:.4f} ms, {bwd_bytes / 1e9:.3f} GB: "
         f"{result['bwd_share']:.1%}), plain {ms['plain_bwd']:.4f} ms; card {card_line()}")
     print(json.dumps({"frozen_bn": result}), flush=True)
+    return result
+
+
+# phase 16: AdaMixer's sampling kernels at the training cell's shapes
+# (hoibench adamixer_r50.train_b4): batch 4, 100 queries x 4 groups x 32
+# points, 64 channels a group, the four levels of each canvas.
+SAMPLE_QUERIES, SAMPLE_GROUPS, SAMPLE_POINTS, SAMPLE_CHANNELS = 100, 4, 32, 64
+# The adjoint's atomics and reductions sum in another order than autograd
+# through the eager route: each gradient within this share of its largest.
+SAMPLE_ADJOINT_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+
+
+def sample_inputs(canvas, dtype, seed):
+    """Levels ``[(feat [B, G, H*W, c], H, W)]``, points ``[B, G, M, 3]`` and
+    level weights ``[B, G, M, 4]`` on the card, the points drawn as a stage
+    draws them: boxes (centres over the canvas and a twentieth beyond each
+    side, sides 2^4-2^9.5 px, aspect 1/4-4) and each box's
+    ``_initial_offsets`` grid moved by N(0, 0.3) box sides (z by N(0, 1)),
+    so some points fall past a border; then laid out as ``sample_groups``
+    lays them out."""
+    from skghoi_torch.detect.adamixer import _initial_offsets, _level_logs, _wh
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    b, n, gr, p = S1_BATCH, SAMPLE_QUERIES, SAMPLE_GROUPS, SAMPLE_POINTS
+
+    def uniform(lo, hi, *shape):
+        return torch.rand(*shape, generator=g, device="cuda", dtype=torch.float64) * (hi - lo) + lo
+
+    h, w = canvas
+    levels = []
+    for stride in (4, 8, 16, 32):
+        lh, lw = h // stride, w // stride
+        feat = torch.randn(b, gr, lh * lw, SAMPLE_CHANNELS, generator=g, device="cuda",
+                           dtype=torch.float64)
+        levels.append((feat.to(dtype), lh, lw))
+    x, y = uniform(-0.05 * w, 1.05 * w, b, n), uniform(-0.05 * h, 1.05 * h, b, n)
+    z, r = uniform(4.0, 9.5, b, n), uniform(-2.0, 2.0, b, n)
+    bw, bh = _wh(z, r)
+    grid = torch.from_numpy(_initial_offsets(gr, p)).to("cuda", torch.float64).view(gr, p, 3)
+    off = grid + torch.randn(b, n, gr, p, 3, generator=g, device="cuda",
+                             dtype=torch.float64) * torch.tensor([0.3, 0.3, 1.0], device="cuda",
+                                                                 dtype=torch.float64)
+    base = torch.stack([x, y, z], -1)[:, :, None, None, :]
+    scale = torch.stack([bw, bh, torch.ones_like(z)], -1)[:, :, None, None, :]
+    points = (base + off * scale).to(dtype).permute(0, 2, 1, 3, 4).reshape(b, gr, n * p, 3)
+    points = points.contiguous()
+    logs = _level_logs(points.device, dtype)
+    wts = torch.softmax(-((points[..., 2:] - logs) ** 2) / 2.0, dim=-1)
+    return levels, points, wts
+
+
+def sample_bytes(levels, points):
+    """Bytes the sampling must move, each once, and the distinct tap cells:
+    forward, the points, the weights, the output and each distinct tap cell
+    of every level; adjoint, the points, the weights and the output's
+    gradient read, the points' and the weights' gradients written, each
+    distinct tap cell read and its gradient written."""
+    from skghoi_torch.detect.adamixer import LEVEL_STRIDES, _taps
+
+    elem, c = points.element_size(), levels[0][0].shape[-1]
+    bg = torch.arange(points.shape[0] * points.shape[1], device=points.device).view(
+        *points.shape[:2], 1)
+    touched = 0
+    for (feat, h, w), stride in zip(levels, LEVEL_STRIDES):
+        idx, _, _ = _taps(h, w, points[..., 0] / stride, points[..., 1] / stride)
+        touched += torch.unique(torch.cat([(bg * (h * w) + i).flatten() for i in idx])).numel()
+    per_point = points.shape[-1] + len(levels)  # x, y, z and the level weights
+    small = points.shape[0] * points.shape[1] * points.shape[2] * per_point * elem
+    out = points.shape[0] * points.shape[1] * points.shape[2] * c * elem
+    return dict(fwd=small + out + touched * c * elem,
+                bwd=2 * small + out + 2 * touched * c * elem, cells=touched)
+
+
+def _eager_graph(levels, points, wts):
+    """The eager route's output and the leaves it was sampled from (copies of
+    ``points``, ``wts`` and the levels that require their gradient)."""
+    from skghoi_torch.detect.adamixer import _sample_levels
+
+    leaves = [t.detach().requires_grad_(True) for t in (points, wts, *(f for f, _, _ in levels))]
+    with torch.enable_grad():
+        out = _sample_levels([(f, h, w) for f, (_, h, w) in zip(leaves[2:], levels)], *leaves[:2])
+    return out, leaves
+
+
+def sample_adjoint_autograd(grad_out, levels, points, wts):
+    """Autograd through the eager route, the adjoint kernel's reference: from
+    the output's gradient ``[B, G, M, c]``, the gradients of ``points`` (z's
+    0: the level weights carry it), of ``wts`` and of each level's map."""
+    out, leaves = _eager_graph(levels, points, wts)
+    grad_points, grad_wts, *grads = torch.autograd.grad(out, leaves, grad_out)
+    return grad_points, grad_wts, grads
+
+
+def eager_backward(grad_out, levels, points, wts):
+    """A call of autograd's backward through the eager route's graph, built
+    once here (to time the backward alone)."""
+    out, leaves = _eager_graph(levels, points, wts)
+    return lambda: torch.autograd.grad(out, leaves, grad_out, retain_graph=True)
+
+
+def phase_adamixer_sample():
+    """Phase 16: AdaMixer's sampling kernels (``ops/adamixer_sample_cuda.py``)
+    at the training cell's shapes on both canvases: the forward ``torch.equal``
+    to the eager route in float32 and float64, the adjoint within
+    ``SAMPLE_ADJOINT_TOL`` of autograd through it; each kernel alone after
+    an L2 flush (its device time in a trace) against its byte bound, beside
+    the plain versions; the launch counters, and one decoder forward and
+    backward at batch 4 launching each kernel once a stage.  Alone:
+    ``python3 -c "import chip_smoke as c; c.phase_adamixer_sample()"``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from skghoi_torch.detect.adamixer import INV_STRIDES, AdaMixerDecoder, _sample_levels
+    from skghoi_torch.ops.adamixer_sample_cuda import sample_cuda
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sample_cuda.build()
+    log(f"[adamixer_sample] built {sample_cuda.source.name} in {sample_cuda.build_seconds:.2f} s")
+    for line in sample_cuda.build_log.splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"[adamixer_sample build] {line.strip()}")
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")  # 5x the 50 MB L2
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def cold_ms(fn, reps=5):
+        """Median ms of ``fn`` after an L2 flush, queued behind a device sleep."""
+        times = []
+        for _ in range(reps):
+            flush.zero_()
+            torch.cuda._sleep(20_000_000)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        return sorted(times)[reps // 2]
+
+    def kernel_ms(fn, pattern, reps=5):
+        """Mean device ms of the kernel named ``pattern`` over ``reps`` calls
+        of ``fn``, each after an L2 flush (from a trace: the adjoint's zero
+        fill is not the kernel's)."""
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in device_events(prof.key_averages()) if pattern in e.key]
+        if sum(e.count for e in rows) != reps:
+            raise AssertionError(f"adamixer_sample: {pattern} ran {[e.count for e in rows]} "
+                                 f"times in {reps} calls")
+        return sum(e.self_device_time_total for e in rows) / 1e3 / reps
+
+    before = sample_cuda.launches, sample_cuda.backward_calls
+    calls = [0, 0]
+    result = dict(name="adamixer_sample", route="cuda",
+                  source="skghoi_torch/csrc/adamixer_sample.cu",
+                  replaces="none (XLA gathers in the JAX package: "
+                           "skghoi_tpu/detect/adamixer.py::sample_3d)", canvases={})
+    with torch.no_grad():
+        for ci, canvas in enumerate((CANVAS, PORTRAIT)):
+            key = f"{canvas[0]}x{canvas[1]}"
+            res = result["canvases"][key] = {}
+            for dtype in (torch.float32, torch.float64):
+                levels, points, wts = sample_inputs(canvas, dtype, 16 + ci)
+                feats, hw = [f for f, _, _ in levels], [(h, w) for _, h, w in levels]
+                got = sample_cuda(feats, hw, INV_STRIDES, points, wts)
+                want = _sample_levels(levels, points, wts)
+                calls[0] += 1
+                if not torch.equal(got, want):
+                    bad = (got != want).sum().item()
+                    raise AssertionError(f"adamixer_sample {key} {dtype}: the forward kernel "
+                                         f"differs from the eager route at {bad} of "
+                                         f"{got.numel()} values, by up to "
+                                         f"{(got - want).abs().max().item():.3e}")
+                gout = torch.randn(got.shape, generator=torch.Generator(device="cuda").manual_seed(
+                    ci), device="cuda", dtype=torch.float64).to(dtype)
+                kernel = sample_cuda.adjoint(gout, feats, hw, INV_STRIDES, points, wts)
+                plain = sample_adjoint_autograd(gout, levels, points, wts)
+                calls[1] += 1
+                names = ["points", "wts"] + [f"level{i}" for i in range(len(levels))]
+                rel = {n: ((a - b).abs().max() / b.abs().max()).item()
+                       for n, a, b in zip(names, [*kernel[:2], *kernel[2]], [*plain[:2], *plain[2]])}
+                if max(rel.values()) > SAMPLE_ADJOINT_TOL[dtype]:
+                    raise AssertionError(f"adamixer_sample {key} {dtype}: the adjoint kernel "
+                                         f"against autograd through the eager route {rel} (tol "
+                                         f"{SAMPLE_ADJOINT_TOL[dtype]:g})")
+                name = str(dtype).split(".")[-1]
+                ix = points[..., 0:1] * torch.tensor(INV_STRIDES, device="cuda", dtype=dtype) - 0.5
+                iy = points[..., 1:2] * torch.tensor(INV_STRIDES, device="cuda", dtype=dtype) - 0.5
+                lim_w = torch.tensor([w - 1 for _, w in hw], device="cuda", dtype=dtype)
+                lim_h = torch.tensor([h - 1 for h, _ in hw], device="cuda", dtype=dtype)
+                clamped = ((ix < 0) | (ix >= lim_w) | (iy < 0) | (iy >= lim_h)).any(-1)
+                res[name] = dict(forward_equal=True, adjoint_rel=rel,
+                                 clamped_share=clamped.double().mean().item())
+                if dtype == torch.float32:
+                    nbytes = sample_bytes(levels, points)
+                    bound = {k: nbytes[k] / HBM_BYTES_PER_S * 1e3 for k in ("fwd", "bwd")}
+                    ms = dict(
+                        fwd=kernel_ms(lambda: sample_cuda(feats, hw, INV_STRIDES, points, wts),
+                                      "adamixer_sample_forward"),
+                        bwd=kernel_ms(lambda: sample_cuda.adjoint(gout, feats, hw, INV_STRIDES,
+                                                                  points, wts),
+                                      "adamixer_sample_adjoint"),
+                        plain_fwd=cold_ms(lambda: _sample_levels(levels, points, wts)),
+                        plain_bwd=cold_ms(eager_backward(gout, levels, points, wts)))
+                    calls[0] += 5  # kernel_ms's calls; cold_ms times the plain versions
+                    calls[1] += 5
+                    res.update(points=points.shape[0] * points.shape[1] * points.shape[2],
+                               cells=nbytes["cells"], fwd_bytes=nbytes["fwd"],
+                               bwd_bytes=nbytes["bwd"], **{f"{k}_ms": v for k, v in ms.items()},
+                               **{f"{k}_bound_ms": v for k, v in bound.items()},
+                               fwd_share=bound["fwd"] / ms["fwd"],
+                               bwd_share=bound["bwd"] / ms["bwd"])
+                del levels, points, wts, feats, got, want, gout, kernel, plain
+                torch.cuda.empty_cache()
+    counted = sample_cuda.launches - before[0], sample_cuda.backward_calls - before[1]
+    if counted != tuple(calls):
+        raise AssertionError(f"adamixer_sample: counters {counted}, calls {calls}")
+
+    # One decoder forward and backward at batch 4 on a random pyramid: one
+    # launch each way a stage.
+    decoder = AdaMixerDecoder().cuda()
+    g = torch.Generator(device="cuda").manual_seed(16)
+    pyramid = [torch.randn(S1_BATCH, CANVAS[0] // s, CANVAS[1] // s, 256, generator=g,
+                           device="cuda", requires_grad=True) for s in (4, 8, 16, 32)]
+    before = sample_cuda.launches, sample_cuda.backward_calls
+    out = decoder(pyramid, (float(CANVAS[0]), float(CANVAS[1])))
+    (out.cls_logits.sum() + out.boxes.sum()).backward()
+    torch.cuda.synchronize()
+    counted = sample_cuda.launches - before[0], sample_cuda.backward_calls - before[1]
+    if counted != (decoder.num_stages, decoder.num_stages) or not all(
+            p.grad is not None and torch.isfinite(p.grad).all() for p in pyramid):
+        raise AssertionError(f"adamixer_sample: a decoder step launched {counted} (forward, "
+                             f"adjoint), expected one each a stage, or its pyramid gradients "
+                             f"are missing or not finite")
+    result["decoder_launches"] = list(counted)
+    del decoder, pyramid, out
+    torch.cuda.empty_cache()
+    for key, res in result["canvases"].items():
+        log(f"[adamixer_sample] {key}, batch {S1_BATCH}, {res['points']} points: forward "
+            f"torch.equal to the eager route in float32 and float64; adjoint against "
+            f"autograd float32 {max(res['float32']['adjoint_rel'].values()):.2e} "
+            f"(tol {SAMPLE_ADJOINT_TOL[torch.float32]:g}), float64 "
+            f"{max(res['float64']['adjoint_rel'].values()):.2e} "
+            f"(tol {SAMPLE_ADJOINT_TOL[torch.float64]:g}); points with a clamped tap "
+            f"{res['float32']['clamped_share']:.1%}")
+        log(f"[adamixer_sample] {key} float32, each alone after an L2 flush: forward "
+            f"{res['fwd_ms']:.4f} ms (bound {res['fwd_bound_ms']:.4f} ms, "
+            f"{res['fwd_bytes'] / 1e6:.2f} MB, {res['cells']} tap cells: {res['fwd_share']:.1%}), "
+            f"plain {res['plain_fwd_ms']:.4f} ms; adjoint {res['bwd_ms']:.4f} ms (bound "
+            f"{res['bwd_bound_ms']:.4f} ms, {res['bwd_bytes'] / 1e6:.2f} MB: "
+            f"{res['bwd_share']:.1%}), plain {res['plain_bwd_ms']:.4f} ms; card {card_line()}")
+    log(f"[adamixer_sample] decoder forward and backward, batch {S1_BATCH}: "
+        f"{counted[0]} forward and {counted[1]} adjoint launches")
+    print(json.dumps({"adamixer_sample": result}), flush=True)
     return result
 
 
@@ -2598,8 +2867,9 @@ def stage1_fpn(images, gt):
 
 def _adamixer_grads(model, images, assign, gt, hw, upstream=None):
     """One set-loss backward split at the pyramid -> (the loss, the
-    pyramid, the pyramid's gradients (the gathers' scatter-add backward),
-    every parameter's gradient: the decoder's from the loss, the backbone's
+    pyramid, the pyramid's gradients (the sampling's adjoint: the gathers'
+    scatter-add backward on the CPU, the adjoint kernel on the card), every
+    parameter's gradient: the decoder's from the loss, the backbone's
     (ResNet + FPN) from ``upstream``, another run's pyramid gradients, or
     else this run's own), on the host."""
     from skghoi_torch.detect.adamixer import set_loss
@@ -2627,12 +2897,15 @@ def stage1_adamixer(images, gt):
     split at the pyramid (see ``S1_GRAD64_TOL``), the two float64 pyramids
     held first (``S1_PYR64_TOL``): at init every backbone
     gradient from the CPU's pyramid gradients; after training the set loss,
-    the pyramid's gradients (the gathers' scatter-add backward, with
-    atomics on the card) and every decoder gradient.  Between the two, the
-    train step at batch ``S1_BATCH``, timed, then as many steps again.  At
+    the pyramid's gradients (the gathers' scatter-add backward on the CPU,
+    the sampling's adjoint kernel on the card) and every decoder gradient.
+    Between the two, the train step at batch ``S1_BATCH``, timed, then as
+    many steps again, each launching the sampling kernels once each way a
+    stage (counted from zero, reported a step in the kernels line).  At
     init every stage keeps the whole-image box (``fc_reg`` starts at zero),
     so the outputs are held again after training."""
     from skghoi_torch.detect.adamixer import AdaMixerDetector, compute_assignments, set_loss
+    from skghoi_torch.ops.adamixer_sample_cuda import sample_cuda
     from skghoi_torch.tools.train_detector import _first_occurrence_mask, adamw, build_adamixer_step
 
     out = {}
@@ -2679,10 +2952,19 @@ def stage1_adamixer(images, gt):
     optimizer = adamw(card, 1e-4, 1e-4)
     step = build_adamixer_step(card, optimizer)
     losses = []
+    sample_cuda.launches = sample_cuda.backward_calls = 0
     out.update(_timed_steps(lambda: losses.append(
         step(images, boxes, labels, valid)["set_loss"].item()), S1_TIMED))
     for _ in range(S1_TIMED):  # the trained state the check below has always held
         losses.append(step(images, boxes, labels, valid)["set_loss"].item())
+    # The sampling kernels, a step: one launch each way a decoder stage.
+    out["sample_launches"] = sample_cuda.launches / len(losses)
+    out["sample_backward_launches"] = sample_cuda.backward_calls / len(losses)
+    stages = card.decoder.num_stages
+    if (out["sample_launches"], out["sample_backward_launches"]) != (stages, stages):
+        raise AssertionError(f"AdaMixer train step: {sample_cuda.launches} forward and "
+                             f"{sample_cuda.backward_calls} adjoint sampling launches in "
+                             f"{len(losses)} steps, expected {stages} each a step")
     out["img_per_s"] = S1_BATCH * 1e3 / out["median_ms"]
     out["losses"] = losses
     if not all(map(math.isfinite, losses)):
@@ -2722,7 +3004,8 @@ def adamixer_check(runs=1):
             try:
                 a = stage1_adamixer(images, gt)
                 line = dict(init={k: a["init"][k] for k in keys}, after={k: a[k] for k in keys},
-                            losses=a["losses"])
+                            losses=a["losses"], sample_launches=a["sample_launches"],
+                            sample_backward_launches=a["sample_backward_launches"])
             except AssertionError as e:
                 failed += 1
                 line = dict(error=str(e))
@@ -3453,7 +3736,7 @@ def main() -> int:
 
 
 def run_phases(args) -> int:
-    """Phases 1-15 in order; the result lines last."""
+    """Phases 1-16 in order; the result lines last."""
     from skghoi_torch.entry import make_batch
     from skghoi_torch.models.interaction_head import filter_detections
     from skghoi_torch.ops.roi_align_cuda import RoIAlignKernel, roi_align_cuda
@@ -3514,6 +3797,9 @@ def run_phases(args) -> int:
     frozen_bn["launches_train"] = train["frozen_bn_launches"]  # a step, the training main path's
     frozen_bn["backward_launches_train"] = train["frozen_bn_backward_launches"]
     frozen_bn["launches_frcnn"] = detect["frozen_bn_launches"]  # an image
+    sample = phase_adamixer_sample()
+    sample["launches_train"] = stage1["adamixer"]["sample_launches"]  # a step, phase 13b's
+    sample["backward_launches_train"] = stage1["adamixer"]["sample_backward_launches"]
 
     log(f"[card] {card}")
     print(json.dumps({"train": train}))
@@ -3524,7 +3810,7 @@ def run_phases(args) -> int:
     print(json.dumps({"detect": detect}))
     print(json.dumps({"detectors": stage1}))
     print(json.dumps({"tools": tools}))
-    print(json.dumps({"kernels": [kernel, adjoint, frozen_bn]}))
+    print(json.dumps({"kernels": [kernel, adjoint, frozen_bn, sample]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

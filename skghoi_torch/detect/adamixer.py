@@ -11,7 +11,9 @@ AdaMixer, CVPR 2022): each query carries a content vector and an
 2. adaptive 3D sampling: ``G x P_in`` points a query at query-generated
    offsets, bilinear in space (tap indices clamped to the map) and a Gaussian
    softmax over the four pyramid levels in scale; each group reads its own
-   ``C/G`` channel slice;
+   ``C/G`` channel slice.  On the card one forward and one adjoint kernel a
+   stage (:class:`SampleFunction`, ``ops/adamixer_sample_cuda.py``), the
+   forward bit for bit the eager gathers, which stay the CPU's route;
 3. adaptive channel mixing (a per-group ``C/G x C/G`` matrix generated from
    the query) then adaptive spatial mixing (``P_out x P_in``);
 4. an FFN, a class head and an ``(dx, dy, dz, dr)`` box update.
@@ -34,6 +36,7 @@ stage's :func:`sample_groups`, ``mixing`` over each
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
@@ -41,10 +44,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.autograd.function import once_differentiable
 
 from skghoi_torch import constants as C
 from skghoi_torch.device import resolve_device
 from skghoi_torch.models.backbone import DetectorBackbone
+from skghoi_torch.ops.adamixer_sample_cuda import sample_cuda
 from skghoi_torch.ops.losses import binary_focal_loss_with_logits
 from skghoi_torch.parallel.distributed import world_size
 from skghoi_torch.parallel.mesh import all_reduce_sum
@@ -54,6 +59,9 @@ from skghoi_torch.weights import init_parameters
 Tensor = torch.Tensor
 
 LEVEL_LOGS = (2.0, 3.0, 4.0, 5.0)  # log2 of the pyramid's strides 4..32
+LEVEL_STRIDES = tuple(2.0**log for log in LEVEL_LOGS)
+# The kernels multiply by these: PyTorch divides a tensor by a scalar through its reciprocal.
+INV_STRIDES = tuple(1.0 / s for s in LEVEL_STRIDES)
 LN_EPS = 1e-6  # flax nn.LayerNorm's default
 CLS_PRIOR_BIAS = -4.595
 
@@ -103,23 +111,85 @@ def position_embedding(xyzr: Tensor, dim: int, temperature: float = 10000.0) -> 
 # Adaptive 3D feature sampling
 # ---------------------------------------------------------------------------
 
-def _bilinear_sample(feat: Tensor, h: int, w: int, x: Tensor, y: Tensor) -> Tensor:
-    """Sample one level: ``feat`` ``[B, G, H*W, c]``, ``x``/``y`` ``[B, G, M]``
-    in pixel units of that level's grid (align_corners=False: pixel centres
-    at +0.5) -> ``[B, G, M, c]``.  Each tap index clamps to the map (border
-    padding)."""
+def _taps(h: int, w: int, x: Tensor, y: Tensor):
+    """The four taps of bilinear sampling at ``x``/``y`` ``[B, G, M]`` in pixel
+    units of an ``h x w`` grid (align_corners=False: pixel centres at +0.5):
+    their ``H*W`` indices ``(t00, t10, t01, t11)``, each clamped to the map
+    (border padding), and the blend weights ``wx``, ``wy`` ``[B, G, M, 1]``."""
     xf, yf = x - 0.5, y - 0.5
     x0, y0 = torch.floor(xf), torch.floor(yf)
     wx, wy = (xf - x0)[..., None], (yf - y0)[..., None]
+
+    def index(ix, iy):
+        return iy.long().clamp(0, h - 1) * w + ix.long().clamp(0, w - 1)
+
+    return (index(x0, y0), index(x0 + 1, y0), index(x0, y0 + 1), index(x0 + 1, y0 + 1)), wx, wy
+
+
+def _bilinear_sample(feat: Tensor, h: int, w: int, x: Tensor, y: Tensor) -> Tensor:
+    """Sample one level: ``feat`` ``[B, G, H*W, c]`` at :func:`_taps`' points
+    -> ``[B, G, M, c]``."""
+    (i00, i10, i01, i11), wx, wy = _taps(h, w, x, y)
     c = feat.shape[-1]
 
-    def tap(ix, iy):
-        idx = iy.long().clamp(0, h - 1) * w + ix.long().clamp(0, w - 1)
+    def tap(idx):
         return torch.gather(feat, 2, idx[..., None].expand(*idx.shape, c))
 
-    top = tap(x0, y0) * (1 - wx) + tap(x0 + 1, y0) * wx
-    bot = tap(x0, y0 + 1) * (1 - wx) + tap(x0 + 1, y0 + 1) * wx
+    top = tap(i00) * (1 - wx) + tap(i10) * wx
+    bot = tap(i01) * (1 - wx) + tap(i11) * wx
     return top * (1 - wy) + bot * wy
+
+
+@functools.lru_cache(maxsize=None)
+def _level_logs(device: torch.device, dtype: torch.dtype) -> Tensor:
+    """``LEVEL_LOGS`` as a tensor, built once a device and dtype."""
+    return torch.tensor(LEVEL_LOGS, dtype=dtype, device=device)
+
+
+def _sample_levels(levels: Sequence[Tuple[Tensor, int, int]], points: Tensor,
+                   wts: Tensor) -> Tensor:
+    """The eager route: each level's bilinear samples at ``points``' x, y
+    times its weight in ``wts [B, G, M, levels]``, summed from level 0 (the
+    CPU's route, and the kernels' plain version)."""
+    xs, ys = points[..., 0], points[..., 1]
+    out = None
+    for li, (feat, h, w) in enumerate(levels):
+        stride = LEVEL_STRIDES[li]
+        term = _bilinear_sample(feat, h, w, xs / stride, ys / stride) * wts[..., li:li + 1].to(
+            feat.dtype)
+        out = term if out is None else out + term
+    return out
+
+
+def _aligned(t: Tensor) -> Tensor:
+    """``t`` contiguous and starting on a 16-byte boundary, as the kernels
+    read it (a copy only where it is not)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+class SampleFunction(torch.autograd.Function):
+    """``apply(points, wts, hw, *feats)``: the sampling of
+    :func:`_sample_levels` as one autograd node over CUDA levels ``feats``
+    ``[B, G, H*W, c]`` of sizes ``hw``: the forward and adjoint kernels of
+    :mod:`skghoi_torch.ops.adamixer_sample_cuda`, which raise on what they
+    do not take."""
+
+    @staticmethod
+    def forward(ctx, points: Tensor, wts: Tensor, hw, *feats: Tensor) -> Tensor:
+        ctx.hw = hw
+        ctx.save_for_backward(points, wts, *feats)
+        with torch.cuda.device(points.device):
+            return sample_cuda(feats, hw, INV_STRIDES[:len(feats)], points, wts)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad_out: Tensor):
+        points, wts, *feats = ctx.saved_tensors
+        with torch.cuda.device(points.device):
+            grad_points, grad_wts, grads = sample_cuda.adjoint(
+                _aligned(grad_out), feats, ctx.hw, INV_STRIDES[:len(feats)], points, wts)
+        return grad_points, grad_wts, None, *grads
 
 
 def _sample_grouped(levels: Sequence[Tuple[Tensor, int, int]], points: Tensor,
@@ -127,17 +197,15 @@ def _sample_grouped(levels: Sequence[Tuple[Tensor, int, int]], points: Tensor,
     """``levels``: per level ``(feat [B, G, H*W, c], H, W)``; ``points``
     ``[B, G, M, 3]`` (x, y image pixels; z log2-scale) -> ``[B, G, M, c]``:
     each point group reads its own map, bilinear in space and a Gaussian
-    softmax over the levels in scale."""
-    xs, ys, zs = points.unbind(-1)
-    logs = torch.tensor(LEVEL_LOGS, dtype=points.dtype, device=points.device)
-    wts = torch.softmax(-((zs[..., None] - logs) ** 2) / tau, dim=-1)  # [B, G, M, 4]
-    out = None
-    for li, (feat, h, w) in enumerate(levels):
-        stride = 2.0 ** LEVEL_LOGS[li]
-        term = _bilinear_sample(feat, h, w, xs / stride, ys / stride) * wts[..., li:li + 1].to(
-            feat.dtype)
-        out = term if out is None else out + term
-    return out
+    softmax over the levels in scale.  CUDA tensors go to
+    :class:`SampleFunction`'s kernels, any other device to the eager route."""
+    logs = _level_logs(points.device, points.dtype)
+    wts = torch.softmax(-((points[..., 2:] - logs) ** 2) / tau, dim=-1)  # [B, G, M, 4]
+    if points.device.type != "cuda":
+        return _sample_levels(levels, points, wts)
+    return SampleFunction.apply(_aligned(points), _aligned(wts),
+                                tuple((h, w) for _, h, w in levels),
+                                *(_aligned(feat) for feat, _, _ in levels))
 
 
 def sample_3d(pyramid: Sequence[Tensor], points: Tensor, tau: float = 2.0) -> Tensor:
