@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of the SCG HOI network on one CUDA card.
 
-    python3 chip_smoke.py [--profile DIR] [--baseline-source OTHER/roi_align.cu]
+    python3 chip_smoke.py [--profile DIR]
 
 Phases, each reporting on its own lines; any failure exits non-zero:
 
@@ -19,8 +19,7 @@ Phases, each reporting on its own lines; any failure exits non-zero:
    CUDA events on the main path's inputs: the kernel alone with a cold L2
    (successive calls rotate over copies of the pyramid), the same warm, on
    padding slots only, the call with its level assignment, the eager call
-   and the plain version (``--baseline-source`` times another build of the
-   kernel alone beside this one).
+   and the plain version, beside its bound (``hoibench.roofline``).
 3. The float32 network on the card against the same network on the CPU
    (64x96, batch 2; TF32 off): scores within 1e-4, filtered boxes and counts
    equal.
@@ -44,7 +43,8 @@ Phases, each reporting on its own lines; any failure exits non-zero:
    rtol = atol = 1e-5 in float32; two calls bit for bit.  Then the kernel
    alone on the main path's inputs (bf16): cold and warm L2 in CUDA graphs,
    queued behind a device sleep, eager, its launches a call, against its
-   byte bound; the GEMM route's device time and launches on the same inputs
+   byte bound (``hoibench.roofline``); the GEMM route's device time and
+   launches on the same inputs
    (the library yardstick) and autograd's backward through the plain
    version.
 6. The float32 train step on the card against the same step on the CPU
@@ -54,16 +54,15 @@ Phases, each reporting on its own lines; any failure exits non-zero:
    gradient is 0, at the adjacency weight's scale).
 7. The training main path: ``entry.train_entry()``, the bfloat16 SCG at full
    width, 832x1344, batch 8, ``frozen_stages=1``, three losses, two-group
-   AdamW at the reference lr; one warm-up step, then ``TRAIN_STEPS`` timed
-   steps with the counts set to 0 just before.  It checks that every loss
-   is finite and every step applied, that the kernel and its adjoint kernel
+   AdamW at the reference lr; one warm-up step, then ``TRAIN_STEPS`` steps
+   with the counts set to 0 just before.  It checks that every loss is
+   finite and every step applied, that the kernel and its adjoint kernel
    ran once per step, that the FrozenBN kernels ran at every site forward
    and at each ``layer2-4`` site backward (53 + 42 a step), that the stem
    and ``layer1`` are bit-for-bit unchanged and that both optimizer groups
-   moved; prints per-step ms, train img/s, peak memory, the losses, and
-   what the NaN guard's host read costs.
-   ``--profile`` adds one traced train step (device busy and idle share, top
-   operations).
+   moved; prints peak memory, the losses, and what the NaN guard's host
+   read costs.  The step's rate and the device's idle share are the
+   benchmark cell ``scg_r50.train_b8``'s (``python3 -m hoibench.run``).
 8. The CLI path: synthetic HICO-DET written by ``data.synthetic`` (16
    landscape training images at 480x640, resized to 800x1066 in the 832x1344
    canvas; 8 portrait test images at 640x480), then
@@ -136,7 +135,7 @@ Phases, each reporting on its own lines; any failure exits non-zero:
     traced image's device ops and idle share; the kernel against
     its plain version on the real ``[1, 1000, 4]`` proposals (random weights
     put them all on P2) and on the same proposals with a quarter rescaled
-    onto each of P2..P5, each timed cold and warm against ``roi_bound_ms``;
+    onto each of P2..P5, each timed cold and warm against its byte bound;
     the detector on the card against the
     CPU, stage by stage: the candidate pools held first, then each flip of
     an NMS or top-k decision verified as a tie (``selection_flips``), and a
@@ -157,9 +156,10 @@ Phases, each reporting on its own lines; any failure exits non-zero:
     offset refused), its train step (``train_detector``'s
     ``build_fpn_step``, AdamW) at batch 4 timed with one traced step, and
     ``decode_detections`` on one image; AdaMixer (100 queries, 6 stages,
-    content 256, 4 groups, 32/128 points, FFN 2048) trained the same way
-    (the spans of ``hoibench``'s ``adamixer_r50.train_b4`` split its step);
-    its train steps launch the sampling kernels once each way a stage;
+    content 256, 4 groups, 32/128 points, FFN 2048) trained for
+    ``S1_ADAMIXER_STEPS`` steps, untimed (its rate is the benchmark cell
+    ``adamixer_r50.train_b4``'s), each launching the sampling kernels once
+    each way a stage;
     card against CPU at init and with the trained weights (outputs within
     ``S1_ADAMIXER_TOL``, the set loss on the CPU's assignments fed to both,
     and in float64 the pyramids within ``S1_PYR64_TOL``, then the backbone's
@@ -174,12 +174,11 @@ Phases, each reporting on its own lines; any failure exits non-zero:
     launches the kernels line reports as ``launches_adamixer_chain``.
     Then bfloat16 (13e): ``bench.py --stage1``'s model, ``DETR(dtype=
     torch.bfloat16)`` (91 classes, 6+6 layers, 100 queries, seeded weights)
-    at 832x1344, batch 8, timed by ``bench.py``'s chained method with CUDA
-    events and printed as ``detr_r50_inference_images_per_sec`` (median of
-    3, with the spread) beside the float32 model; its encoder's input
-    float32; the batch's eight images card against CPU in bfloat16, each
-    output of each image within ``S1_BF16_FACTOR`` x the card's own
-    bfloat16-against-float32 gap on it.
+    at 832x1344, batch 8 (its rate is the benchmark cell
+    ``detr_r50.detect_b8``'s); its encoder's input float32; the batch's
+    eight images card against CPU in bfloat16, each output of each image
+    within ``S1_BF16_FACTOR`` x the card's own bfloat16-against-float32 gap
+    on it, which the float32 model on the card gives.
 
 14. The user and measurement tools on the card, on what phases 8, 9 and 12
     left (``keep``; run alone, :func:`tool_inputs` makes stand-ins): (a)
@@ -196,7 +195,7 @@ Phases, each reporting on its own lines; any failure exits non-zero:
     (d) ``learning_curve.parse_log`` on phase 8's ``train_hicodet`` log;
     (e) ``perf_report`` (bf16, batch 8, 832x1344: img/s, TFLOP a step, MFU,
     ``first_call_seconds``, one launch a forward: ``launches_perf_report``)
-    beside phases 4 and 7; (f) ``stage_profile`` (every part, batch 8), the
+    beside phase 4; (f) ``stage_profile`` (every part, batch 8), the
     kernel against its plain version on its head inputs; (g) ``bench_io
     --train`` over phase 8's images, beside phase 8's train img/s; (h) the
     host tools once (``hicodet_split``, ``navigator`` on a scripted stdin,
@@ -241,16 +240,18 @@ CUDA device it exits with code 2 and prints no result.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
 import os
 import subprocess
 import sys
 import time
-from pathlib import Path
 
 import numpy as np
 import torch
+
+from hoibench.roofline import adjoint_bytes, adjoint_ops, roi_forward_bound_s, sample_cells
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOPS_PER_S = 67e12   # H100 SXM, outside the tensor cores
@@ -318,22 +319,42 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cu
                 "cudaMemsetAsync", "cudaMemcpyAsync")
 
 
-def queued_ms(fn, reps: int) -> float:
-    """Median device time of ``fn``: each call is queued behind a ~20 ms
-    device sleep, so the host has issued all of it before the device starts
-    and the events measure the device alone (``fn`` must not synchronise)."""
+@functools.cache
+def l2_flush_buffer() -> torch.Tensor:
+    """256 MB on the card, five times the 50 MB L2: zeroing it evicts the L2."""
+    return torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+
+
+def cold_ms(fn, reps: int = 5, flush: bool = True) -> float:
+    """Median device ms of ``fn``, after one call to warm it up: each call is
+    queued behind a ~10 ms device sleep, so the host has issued all of it
+    before the device starts and the events measure the device alone
+    (``fn`` must not synchronise); with ``flush``, the L2 is flushed before
+    each call, so that ``fn`` finds its inputs in HBM."""
     fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     times = []
     for _ in range(reps):
         torch.cuda.synchronize()
-        torch.cuda._sleep(40_000_000)
+        if flush:
+            l2_flush_buffer().zero_()
+        torch.cuda._sleep(20_000_000)
         start.record()
         fn()
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return sorted(times)[reps // 2]
+
+
+def build_logged(kernel, tag: str) -> None:
+    """Build ``kernel``'s library (``ops/nvcc.py``), then log the build's
+    time and the compiler's register and spill lines."""
+    kernel.build()
+    log(f"[{tag}] built {kernel.source.name} in {kernel.build_seconds:.2f} s")
+    for line in kernel.build_log.splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"[{tag} build] {line.strip()}")
 
 
 def graph_ms(calls, iters: int) -> float:
@@ -352,25 +373,9 @@ def graph_ms(calls, iters: int) -> float:
     return cuda_ms(graph.replay, iters) / len(calls)
 
 
-def sample_cells(boxes, hw):
-    """FPN level of each box of ``[..., 4]`` ``boxes``, and for each level the
-    map rows and columns its 14 samples a side read there (low and high cell,
-    ``[..., 28]`` each), over maps of sizes ``hw`` (four (H, W), finest first)."""
-    from skghoi_torch.ops.roi_align import _sample_axis, fpn_level_assignment
-
-    per_level = []
-    for (h, w), stride in zip(hw, (4, 8, 16, 32)):
-        x1, y1 = boxes[..., 0] / stride, boxes[..., 1] / stride
-        roi_w = (boxes[..., 2] / stride - x1).clamp_min(1.0)
-        roi_h = (boxes[..., 3] / stride - y1).clamp_min(1.0)
-        yl, yh, *_ = _sample_axis(y1, roi_h, h, 7, 2)
-        xl, xh, *_ = _sample_axis(x1, roi_w, w, 7, 2)
-        per_level.append((torch.cat([yl, yh], -1), torch.cat([xl, xh], -1)))
-    return fpn_level_assignment(boxes), per_level
-
-
 def grid_shapes(boxes, hw):
-    """Level, distinct sample rows and distinct sample columns of each box."""
+    """Level, distinct sample rows and distinct sample columns of each box
+    (``hoibench.roofline.sample_cells``, over maps of sizes ``hw``)."""
     levels, per_level = sample_cells(boxes, hw)
     rows, cols = torch.zeros_like(levels), torch.zeros_like(levels)
     for l, cells in enumerate(per_level):
@@ -379,28 +384,6 @@ def grid_shapes(boxes, hw):
             n = 1 + (srt[..., 1:] != srt[..., :-1]).sum(-1)
             dst.copy_(torch.where(levels == l, n.to(dst.dtype), dst))
     return levels, rows, cols
-
-
-def roi_bound_ms(maps, boxes):
-    """Least time for the kernel's work on these inputs: the larger of its
-    bytes (distinct map cells the samples read, the boxes, levels and the
-    output) over HBM bandwidth and its float32 operations over peak."""
-    bsz, n = boxes.shape[:2]
-    c, elem = maps[0].shape[-1], maps[0].element_size()
-    levels, per_level = sample_cells(boxes, [fm.shape[1:3] for fm in maps])
-    cells, base = [], 0
-    for l, (fm, (ys, xs)) in enumerate(zip(maps, per_level)):
-        h, w = fm.shape[1:3]
-        img = torch.arange(bsz, device=boxes.device)[:, None, None, None]
-        ids = base + (img * h + ys[..., :, None]) * w + xs[..., None, :]
-        cells.append(ids[levels == l].flatten())
-        base += bsz * h * w
-    touched = torch.unique(torch.cat(cells)).numel()
-    out_bytes = bsz * n * 49 * c * elem
-    n_bytes = touched * c * elem + out_bytes + boxes.numel() * 4 + levels.numel() * 4
-    flops = bsz * n * 49 * c * (4 * 4 * 2 + 2)  # 4 samples x 4 corners, mean
-    bytes_ms, ops_ms = n_bytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
-    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations"), touched
 
 
 def kernel_cases(main_boxes):
@@ -497,10 +480,8 @@ def check_kernel_portrait(main_boxes):
     return errs
 
 
-def time_kernel(main_boxes, baseline=None):
-    """Times on the main path's inputs (bf16, C=256, 832x1344, batch 8).
-    ``baseline``, another build of the kernel's C interface, is timed alone
-    beside this one, in turns: baseline, kernel, kernel, baseline."""
+def time_kernel(main_boxes):
+    """Times on the main path's inputs (bf16, C=256, 832x1344, batch 8)."""
     from skghoi_torch.ops.roi_align import fpn_level_assignment, multiscale_roi_align
     from skghoi_torch.ops.roi_align_cuda import roi_align_cuda
 
@@ -515,53 +496,41 @@ def time_kernel(main_boxes, baseline=None):
     # pyramid is fresh from the backbone, 380 MB).  Six copies check three.
     copies = [maps] + [[m.clone() for m in maps] for _ in range(5)]
 
-    def alone(k):
-        """(cold with 3 copies, cold with 6, warm) ms of kernel build ``k`` alone."""
-        def call(m):
-            return lambda: k.launch(m, main_boxes, levels, out)
-        cold = [graph_ms([call(copies[i % n]) for i in range(10 * n)], iters=20) for n in (3, 6)]
-        return (*cold, graph_ms([call(maps)] * 20, iters=20))
-
     # The same number of items, each a 2x2-cell padding slot: the kernel's
     # cost that does not grow with the cells it reads.
     pad = torch.zeros_like(main_boxes)
     pad_levels = fpn_level_assignment(pad).contiguous()
     pad_ms = graph_ms([(lambda m: lambda: roi_align_cuda.launch(m, pad, pad_levels, out))(
         copies[i % 3]) for i in range(30)], iters=20)
-    if baseline is None:
-        cold_ms, cold6_ms, warm_ms = alone(roi_align_cuda)
-    else:
-        turns = [baseline, roi_align_cuda, roi_align_cuda, baseline]
-        got = [alone(k) for k in turns]
-        for k in turns[:2]:
-            rs = [tuple(round(x, 5) for x in r) for kk, r in zip(turns, got) if kk is k]
-            log(f"[kernel] in turns (baseline, kernel, kernel, baseline), {k.source}: kernel alone, "
-                f"(cold 3 copies, cold 6 copies, warm) ms {rs}")
-        cold_ms, cold6_ms, warm_ms = got[2]
+
+    def call(m):
+        return lambda: roi_align_cuda.launch(m, main_boxes, levels, out)
+
+    cold, cold6 = [graph_ms([call(copies[i % n]) for i in range(10 * n)], iters=20) for n in (3, 6)]
+    warm = graph_ms([call(maps)] * 20, iters=20)
     del copies
     call_ms = graph_ms([lambda: roi_align_cuda(maps, main_boxes)] * 20, iters=20)
     eager_ms = cuda_ms(lambda: roi_align_cuda(maps, main_boxes), iters=200)
     plain_ms = cuda_ms(lambda: multiscale_roi_align(maps, main_boxes), iters=10)
-    bound_ms, bound_by, touched = roi_bound_ms(maps, main_boxes)
+    bound_ms = roi_forward_bound_s([m.shape for m in maps], main_boxes, 2, HBM_BYTES_PER_S,
+                                   FP32_FLOPS_PER_S) * 1e3
     log(f"[kernel] roi_align bf16 B={BATCH} N={main_boxes.shape[1]} C=256, pyramid "
-        f"{pyramid_mb:.1f} MB: kernel alone, cold L2 {cold_ms:.5f} ms (3 pyramid copies; "
-        f"{cold6_ms:.5f} with 6), warm L2 {warm_ms:.5f} ms (same inputs), both CUDA graph; "
+        f"{pyramid_mb:.1f} MB: kernel alone, cold L2 {cold:.5f} ms (3 pyramid copies; "
+        f"{cold6:.5f} with 6), warm L2 {warm:.5f} ms (same inputs), both CUDA graph; "
         f"padding slots only {pad_ms:.5f} ms (cold); "
         f"per call with level assignment {call_ms:.5f} ms (CUDA graph, warm); "
-        f"eager call {eager_ms:.5f} ms; plain {plain_ms:.4f} ms; bound {bound_ms:.5f} ms by "
-        f"{bound_by} ({touched} distinct cells read): cold time at {bound_ms / cold_ms:.1%} "
-        f"of the bound")
-    return dict(ms=cold_ms, cold_ms=cold_ms, cold6_ms=cold6_ms, warm_ms=warm_ms, pad_ms=pad_ms,
-                call_ms=call_ms,
-                eager_ms=eager_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                bound_share=bound_ms / cold_ms, library_ms=None)
+        f"eager call {eager_ms:.5f} ms; plain {plain_ms:.4f} ms; bound {bound_ms:.5f} ms: "
+        f"cold time at {bound_ms / cold:.1%} of the bound")
+    return dict(ms=cold, cold_ms=cold, cold6_ms=cold6, warm_ms=warm, pad_ms=pad_ms,
+                call_ms=call_ms, eager_ms=eager_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_share=bound_ms / cold, library_ms=None)
 
 
-def phase_kernel(main_boxes, baseline=None):
+def phase_kernel(main_boxes):
     err_bf16, err_fp32 = check_kernel(main_boxes)
     return dict(name="roi_align", route="cuda", source="skghoi_torch/csrc/roi_align.cu",
                 replaces="skghoi_tpu/ops/pallas_roi_align.py:213",
-                max_abs_err=err_bf16, max_abs_err_fp32=err_fp32, **time_kernel(main_boxes, baseline))
+                max_abs_err=err_bf16, max_abs_err_fp32=err_fp32, **time_kernel(main_boxes))
 
 
 def phase_parity():
@@ -640,35 +609,15 @@ def _map_grads(fn, maps, cot):
 
 def adjoint_bounds(shapes, n_boxes, elem):
     """Least time for the adjoint: (bytes ms, GEMM-operation ms, bytes, ops).
-    Bytes: the cotangent, boxes and levels read once, the four map gradients
-    written once.  Operations: the two GEMMs of each level as the plain
-    version formulates them (every box at every level, the other levels'
-    boxes masked to zero), at the float32 rate outside the tensor cores (TF32
-    is off)."""
+    Bytes: ``hoibench.roofline.adjoint_bytes``.  Operations: the two GEMMs
+    of each level as the plain version formulates them (every box at every
+    level, the other levels' boxes masked to zero), at the float32 rate
+    outside the tensor cores (TF32 is off)."""
     bsz, c = shapes[0][0], shapes[0][3]
-    n_bytes = (bsz * n_boxes * 49 * c + sum(b * h * w * c for b, h, w, _ in shapes)) * elem
-    n_bytes += bsz * n_boxes * (16 + 4)
+    n_bytes = adjoint_bytes(shapes, n_boxes, elem)
     ops = sum(2 * bsz * n_boxes * 7 * w * 7 * c + 2 * bsz * h * w * c * 7 * n_boxes
               for _, h, w, _ in shapes)
     return n_bytes / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOPS_PER_S * 1e3, n_bytes, ops
-
-
-def adjoint_kernel_ops(shapes, boxes):
-    """Operations the adjoint needs on these boxes: for each box on its
-    level, a multiply-add for every nonzero (bin, row) weight times every
-    nonzero (bin, column) weight, for each channel."""
-    from skghoi_torch.ops.roi_align import fpn_level_assignment, level_axis_weights
-
-    levels = fpn_level_assignment(boxes)
-    pairs = 0
-    for l, ((_, h, w, _), stride) in enumerate(zip(shapes, (4, 8, 16, 32))):
-        x1, y1 = boxes[..., 0] / stride, boxes[..., 1] / stride
-        roi_w = (boxes[..., 2] / stride - x1).clamp_min(1.0)
-        roi_h = (boxes[..., 3] / stride - y1).clamp_min(1.0)
-        ny = (level_axis_weights(y1, roi_h, h, h) != 0).sum((-1, -2))
-        nx = (level_axis_weights(x1, roi_w, w, w) != 0).sum((-1, -2))
-        pairs += int((ny * nx * (levels == l)).sum())
-    return 2 * pairs * shapes[0][3]
 
 
 def adjoint_cases(main_boxes):
@@ -789,15 +738,15 @@ def time_adjoint(main_boxes):
     def call(grads, cot):
         return lambda: roi_align_cuda.adjoint(grads, main_boxes, levels, cot)
 
-    cold_ms = graph_ms([call(*copies[i % 3]) for i in range(30)], iters=20)
-    warm_ms = graph_ms([call(grads, cot)] * 20, iters=20)
-    device_ms = queued_ms(call(grads, cot), reps=5)
+    cold = graph_ms([call(*copies[i % 3]) for i in range(30)], iters=20)
+    warm = graph_ms([call(grads, cot)] * 20, iters=20)
+    device_ms = cold_ms(call(grads, cot), flush=False)
     eager_ms = cuda_ms(call(grads, cot), iters=50)
     launches, _ = _launches_per_call(call(grads, cot))
     del copies
 
     gemm = lambda: roi_align_adjoint(shapes, torch.bfloat16, main_boxes, cot)  # noqa: E731
-    gemm_device_ms = queued_ms(gemm, reps=5)
+    gemm_device_ms = cold_ms(gemm, flush=False)
     gemm_eager_ms = cuda_ms(gemm, iters=20)
     gemm_launches, prof = _launches_per_call(gemm)
     log(prof.key_averages().table(sort_by="self_device_time_total", row_limit=8))
@@ -810,25 +759,25 @@ def time_adjoint(main_boxes):
     del out, leaves
 
     bytes_ms, gemm_ops_ms, n_bytes, gemm_ops = adjoint_bounds(shapes, main_boxes.shape[1], 2)
-    ops = adjoint_kernel_ops(shapes, main_boxes)
+    ops = adjoint_ops(shapes, main_boxes)
     ops_ms = ops / FP32_FLOPS_PER_S * 1e3
     bound_ms, bound_by = max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
     log(f"[adjoint] kernel bf16 B={BATCH} N={main_boxes.shape[1]} C=256 {CANVAS[0]}x{CANVAS[1]} "
-        f"pyramid: alone, cold L2 {cold_ms:.5f} ms (3 copies), warm L2 {warm_ms:.5f} ms, both "
+        f"pyramid: alone, cold L2 {cold:.5f} ms (3 copies), warm L2 {warm:.5f} ms, both "
         f"CUDA graph; queued behind a sleep {device_ms:.5f} ms; eager {eager_ms:.5f} ms; "
         f"{launches} device launches a call; bound {bound_ms:.5f} ms by {bound_by} "
         f"({n_bytes / 1e6:.1f} MB; {ops / 1e6:.1f} MFLOP of multiply-adds, {ops_ms:.5f} ms): cold "
-        f"time at {bound_ms / cold_ms:.1%} of the bound, queued {bound_ms / device_ms:.1%}")
+        f"time at {bound_ms / cold:.1%} of the bound, queued {bound_ms / device_ms:.1%}")
     log(f"[adjoint] GEMM route (roi_align_adjoint, cuBLAS), same inputs: {gemm_device_ms:.4f} ms "
         f"of device time (queued behind a sleep), {gemm_eager_ms:.4f} ms a call eager, "
         f"{gemm_launches} device launches a call, {gemm_ops / 1e9:.1f} GFLOP (bound "
         f"{gemm_ops_ms:.4f} ms at the fp32 rate); the kernel's queued time is "
         f"{device_ms / gemm_device_ms:.1%} of it. Autograd through the plain gather version, "
         f"backward alone: {plain_ms:.4f} ms a call")
-    return dict(ms=cold_ms, cold_ms=cold_ms, warm_ms=warm_ms, device_ms=device_ms,
+    return dict(ms=cold, cold_ms=cold, warm_ms=warm, device_ms=device_ms,
                 eager_ms=eager_ms, launches_per_call=launches, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, bytes_bound_ms=bytes_ms,
-                bound_share=bound_ms / cold_ms, library_ms=gemm_device_ms,
+                bound_share=bound_ms / cold, library_ms=gemm_device_ms,
                 library="roi_align_adjoint: batched torch.matmul (cuBLAS), the GEMM route",
                 library_eager_ms=gemm_eager_ms, library_launches_per_call=gemm_launches,
                 library_ops_bound_ms=gemm_ops_ms)
@@ -893,29 +842,9 @@ def phase_frozen_bn():
     from skghoi_torch.ops.frozen_bn_cuda import (frozen_bn_backward_plain, frozen_bn_cuda,
                                                  frozen_bn_plain)
 
-    frozen_bn_cuda.build()
-    log(f"[frozen_bn] built {frozen_bn_cuda.source.name} in {frozen_bn_cuda.build_seconds:.2f} s")
-    for line in frozen_bn_cuda.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[frozen_bn build] {line.strip()}")
+    build_logged(frozen_bn_cuda, "frozen_bn")
     sites = frozen_bn_sites()
     g = torch.Generator(device="cuda").manual_seed(15)
-    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")  # 5x the 50 MB L2
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-
-    def cold_ms(fn, reps=5):
-        """Median ms of ``fn`` after an L2 flush, queued behind a device sleep."""
-        times = []
-        for _ in range(reps):
-            flush.zero_()
-            torch.cuda._sleep(20_000_000)
-            start.record()
-            fn()
-            end.record()
-            torch.cuda.synchronize()
-            times.append(start.elapsed_time(end))
-        return sorted(times)[reps // 2]
-
     ms = dict(fwd=0.0, bwd=0.0, plain_fwd=0.0, plain_bwd=0.0)
     mismatches = []
     with torch.no_grad():
@@ -1079,26 +1008,7 @@ def phase_adamixer_sample():
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    sample_cuda.build()
-    log(f"[adamixer_sample] built {sample_cuda.source.name} in {sample_cuda.build_seconds:.2f} s")
-    for line in sample_cuda.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[adamixer_sample build] {line.strip()}")
-    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")  # 5x the 50 MB L2
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-
-    def cold_ms(fn, reps=5):
-        """Median ms of ``fn`` after an L2 flush, queued behind a device sleep."""
-        times = []
-        for _ in range(reps):
-            flush.zero_()
-            torch.cuda._sleep(20_000_000)
-            start.record()
-            fn()
-            end.record()
-            torch.cuda.synchronize()
-            times.append(start.elapsed_time(end))
-        return sorted(times)[reps // 2]
+    build_logged(sample_cuda, "adamixer_sample")
 
     def kernel_ms(fn, pattern, reps=5):
         """Mean device ms of the kernel named ``pattern`` over ``reps`` calls
@@ -1106,7 +1016,7 @@ def phase_adamixer_sample():
         fill is not the kernel's)."""
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
-                flush.zero_()
+                l2_flush_buffer().zero_()
                 fn()
             torch.cuda.synchronize()
         rows = [e for e in device_events(prof.key_averages()) if pattern in e.key]
@@ -1257,7 +1167,7 @@ def phase_train_parity():
         raise AssertionError("train parity: the step on the card differs from the CPU's")
 
 
-def phase_train(profile_dir):
+def phase_train():
     """The training main path through ``entry.train_entry``."""
     from skghoi_torch.entry import train_entry
     from skghoi_torch.ops.frozen_bn_cuda import frozen_bn_cuda
@@ -1277,12 +1187,9 @@ def phase_train(profile_dir):
     roi_align_cuda.launches = roi_align_cuda.adjoint_launches = 0
     RoIAlignFunction.backward_calls = 0
     frozen_bn_cuda.launches = frozen_bn_cuda.backward_launches = 0
-    times, rows = [], []
+    rows = []
     for _ in range(TRAIN_STEPS):
-        t0 = time.perf_counter()
         total, losses, out, applied = step(batch, generator)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
         rows.append((applied, {k: float(v) for k, v in losses.items()}))
     launches, adjoints = roi_align_cuda.launches, RoIAlignFunction.backward_calls
     adjoint_launches = roi_align_cuda.adjoint_launches
@@ -1305,14 +1212,11 @@ def phase_train(profile_dir):
              for g, b in zip(opt.param_groups, before)]
     if [g["name"] for g in opt.param_groups] != ["detector", "head"] or not all(moved):
         raise AssertionError(f"train: groups {[g['name'] for g in opt.param_groups]} moved {moved}")
-    median = sorted(times)[len(times) // 2]
     log(f"[train] bf16 SCG {CANVAS[0]}x{CANVAS[1]} batch {BATCH}, frozen_stages=1, AdamW lr "
-        f"{[g['lr'] for g in opt.param_groups]}: {TRAIN_STEPS} steps, per step ms "
-        f"{[round(t * 1e3, 3) for t in times]}, {BATCH * TRAIN_STEPS / sum(times):.2f} train img/s "
-        f"(median {BATCH / median:.2f}), peak memory {peak_gib:.2f} GiB, roi_align launches "
-        f"{launches}, adjoints {adjoints} (adjoint kernel launches {adjoint_launches}), frozen_bn "
-        f"launches {bn_launches[0]} forward + {bn_launches[1]} backward, n_h "
-        f"{out.n_h.tolist()} n {out.n.tolist()}")
+        f"{[g['lr'] for g in opt.param_groups]}: {TRAIN_STEPS} steps, peak memory "
+        f"{peak_gib:.2f} GiB, roi_align launches {launches}, adjoints {adjoints} (adjoint kernel "
+        f"launches {adjoint_launches}), frozen_bn launches {bn_launches[0]} forward + "
+        f"{bn_launches[1]} backward, n_h {out.n_h.tolist()} n {out.n.tolist()}")
     for i, (_, l) in enumerate(rows):
         log(f"[train] step {i + 1} losses {l}")
     log(f"[train] frozen stem + layer1 ({len(frozen)} tensors) unchanged; both groups moved; "
@@ -1329,15 +1233,10 @@ def phase_train(profile_dir):
     log(f"[train] AdamW update ({sum(p.numel() for g in opt.param_groups for p in g['params'])} "
         f"parameters): host issue {issue_ms:.3f} ms after the guard's sync (the device's idle "
         f"time it causes), device {update_ms:.3f} ms (CUDA events)")
-    result = dict(step_ms=[t * 1e3 for t in times], img_per_s=BATCH * TRAIN_STEPS / sum(times),
-                  median_img_per_s=BATCH / median, peak_gib=peak_gib, launches=launches,
-                  adjoints=adjoints, adjoint_launches=adjoint_launches,
-                  frozen_bn_launches=bn_launches[0] / TRAIN_STEPS,
-                  frozen_bn_backward_launches=bn_launches[1] / TRAIN_STEPS, guard_issue_ms=issue_ms,
-                  update_ms=update_ms)
-    if profile_dir:
-        result.update(profile_train_step(step, batch, generator, profile_dir, median))
-    return result
+    return dict(peak_gib=peak_gib, launches=launches, adjoints=adjoints,
+                adjoint_launches=adjoint_launches, frozen_bn_launches=bn_launches[0] / TRAIN_STEPS,
+                frozen_bn_backward_launches=bn_launches[1] / TRAIN_STEPS, guard_issue_ms=issue_ms,
+                update_ms=update_ms)
 
 
 def device_events(events):
@@ -1349,26 +1248,6 @@ def device_events(events):
 
     return [e for e in events
             if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
-
-
-def profile_train_step(step, batch, generator, profile_dir, step_s):
-    """One traced train step: device busy time and idle share, top operations."""
-    from torch.profiler import ProfilerActivity, profile
-
-    os.makedirs(profile_dir, exist_ok=True)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        step(batch, generator)
-        torch.cuda.synchronize()
-    prof.export_chrome_trace(os.path.join(profile_dir, "scg_bf16_train_step.json"))
-    events = prof.key_averages()
-    device = device_events(events)
-    busy_ms = sum(e.self_device_time_total for e in device) / 1e3
-    log(events.table(sort_by="self_device_time_total", row_limit=20))
-    idle = max(0.0, 1 - busy_ms / (step_s * 1e3))
-    log(f"[profile] one bf16 train step: device busy {busy_ms:.3f} ms in "
-        f"{sum(e.count for e in device)} device ops; median step {step_s * 1e3:.3f} ms, so the "
-        f"device idles {idle:.1%} of a step")
-    return dict(device_busy_ms=busy_ms, idle_share=idle)
 
 
 class Tee:
@@ -2475,9 +2354,10 @@ def check_kernel_frcnn(feats, boxes):
                      for i in range(30)], iters=20)
     warm = graph_ms([lambda: roi_align_cuda.launch(maps, boxes, levels, out)] * 20, iters=20)
     plain = cuda_ms(lambda: multiscale_roi_align(maps, boxes), iters=5)
-    bound, bound_by, _ = roi_bound_ms(maps, boxes)
+    bound = roi_forward_bound_s([m.shape for m in maps], boxes, maps[0].element_size(),
+                                HBM_BYTES_PER_S, FP32_FLOPS_PER_S) * 1e3
     return dict(err=err, cold_ms=cold, warm_ms=warm, plain_ms=plain, bound_ms=bound,
-                bound_by=bound_by, level_counts=torch.bincount(levels.flatten(), minlength=4).tolist())
+                level_counts=torch.bincount(levels.flatten(), minlength=4).tolist())
 
 
 def time_detector_stages(model, image, size, reps=3):
@@ -2629,7 +2509,7 @@ def phase_detect():
                     f"{r['level_counts']}), float32 C=256: max|kernel-plain| {r['err']:.3e} "
                     f"(rtol=atol={FP32_TOL:g}) ok; cold L2 {r['cold_ms'] * 1e3:.3f} us, warm "
                     f"{r['warm_ms'] * 1e3:.3f} us (CUDA graph), plain {r['plain_ms']:.4f} ms; bound "
-                    f"{r['bound_ms'] * 1e3:.3f} us by {r['bound_by']}: cold at "
+                    f"{r['bound_ms'] * 1e3:.3f} us: cold at "
                     f"{r['bound_ms'] / r['cold_ms']:.1%} of it")
             c = entry["cpu"]
             log(f"[detect] card against CPU ({tag}): features max rel diff {c['feature_rel']:.3e}; "
@@ -2660,7 +2540,10 @@ def phase_detect():
 
 
 S1_BATCH = 4  # phase 13: the detectors' train batch at 832x1344
-S1_TIMED = 3  # phase 13: timed train steps of each detector, after one warm-up
+S1_TIMED = 3  # phase 13a: timed train steps of the FPN detector, after one warm-up
+# phase 13b: AdaMixer's train steps between its two card-vs-CPU checks; the
+# float64 check after training holds the state these eight steps reach
+S1_ADAMIXER_STEPS = 8
 S1_LOGIT_TOL = 1e-5  # phase 13: FPN card vs CPU, relative to each output's largest
 S1_LOSS_RTOL = 1e-4  # phase 13: first-step losses card vs CPU
 S1_ADAMIXER_TOL = 1e-4  # phase 13: AdaMixer per-stage outputs card vs CPU, relative
@@ -2697,8 +2580,6 @@ S1_PYR64_TOL = 1e-10
 S1_BF16_FACTOR = 2.0
 S1_BF16_GAP_MAX = 0.1
 DETR_BENCH_BATCH = 8  # phase 13e: bench.py --stage1's shape, 832x1344 at batch 8
-DETR_BENCH_ITERS = 10  # phase 13e: bench.py's chain length (iters + 1 calls against 1)
-DETR_BENCH_REPEATS = 3  # phase 13e: bench.py's repeats, median reported
 
 
 def _rel(a, b):
@@ -2899,9 +2780,9 @@ def stage1_adamixer(images, gt):
     gradient from the CPU's pyramid gradients; after training the set loss,
     the pyramid's gradients (the gathers' scatter-add backward on the CPU,
     the sampling's adjoint kernel on the card) and every decoder gradient.
-    Between the two, the train step at batch ``S1_BATCH``, timed, then as
-    many steps again, each launching the sampling kernels once each way a
-    stage (counted from zero, reported a step in the kernels line).  At
+    Between the two, ``S1_ADAMIXER_STEPS`` train steps at batch
+    ``S1_BATCH``, each launching the sampling kernels once each way a stage
+    (counted from zero, reported a step in the kernels line).  At
     init every stage keeps the whole-image box (``fc_reg`` starts at zero),
     so the outputs are held again after training."""
     from skghoi_torch.detect.adamixer import AdaMixerDetector, compute_assignments, set_loss
@@ -2953,9 +2834,7 @@ def stage1_adamixer(images, gt):
     step = build_adamixer_step(card, optimizer)
     losses = []
     sample_cuda.launches = sample_cuda.backward_calls = 0
-    out.update(_timed_steps(lambda: losses.append(
-        step(images, boxes, labels, valid)["set_loss"].item()), S1_TIMED))
-    for _ in range(S1_TIMED):  # the trained state the check below has always held
+    for _ in range(S1_ADAMIXER_STEPS):
         losses.append(step(images, boxes, labels, valid)["set_loss"].item())
     # The sampling kernels, a step: one launch each way a decoder stage.
     out["sample_launches"] = sample_cuda.launches / len(losses)
@@ -2965,7 +2844,6 @@ def stage1_adamixer(images, gt):
         raise AssertionError(f"AdaMixer train step: {sample_cuda.launches} forward and "
                              f"{sample_cuda.backward_calls} adjoint sampling launches in "
                              f"{len(losses)} steps, expected {stages} each a step")
-    out["img_per_s"] = S1_BATCH * 1e3 / out["median_ms"]
     out["losses"] = losses
     if not all(map(math.isfinite, losses)):
         raise AssertionError(f"AdaMixer train step losses {losses}")
@@ -3129,40 +3007,13 @@ def _bf16_held(name, card, card_f32, cpu):
     return held
 
 
-def chained_img_s(model, images, sizes, iters=DETR_BENCH_ITERS, repeats=DETR_BENCH_REPEATS):
-    """``bench.py --stage1``'s method on the card: after a warm-up, each repeat
-    times one forward and a chain of ``iters + 1`` (each input depends on the
-    last output's scores), by CUDA events, and takes the difference over
-    ``iters``; img/s of each repeat, their median, least and most."""
-    def chain(n):
-        carry = torch.zeros((), device=images.device)
-        for _ in range(n):
-            carry = model(images + carry * 1e-12, sizes).scores.sum()
-
-    def timed(n):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        chain(n)
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / 1e3
-
-    chain(2)
-    samples = []
-    for _ in range(repeats):
-        t_one = timed(1)
-        samples.append(images.shape[0] * iters / (timed(iters + 1) - t_one))
-    return dict(median=sorted(samples)[repeats // 2], min=min(samples), max=max(samples),
-                samples=samples)
-
-
 def stage1_detr_bf16(seed=0):
     """Phase 13e: ``bench.py --stage1``'s model on the card: DETR-R50 (91
     classes, 6+6 layers, 100 queries, random facebookresearch-layout weights
-    and images from ``seed``) in bfloat16 at 832x1344, batch 8, timed by
-    ``chained_img_s`` beside the float32 model; the batch in bfloat16 card
-    against CPU, image by image; the encoder's input float32 and
-    ``input_proj``'s output bfloat16 on the card."""
+    and images from ``seed``) in bfloat16 at 832x1344, batch 8, beside the
+    float32 model; the batch in bfloat16 card against CPU, image by image;
+    the encoder's input float32 and ``input_proj``'s output bfloat16 on the
+    card."""
     from skghoi_torch.detect.detr import DETR, load_torch_detr, random_state_dict
 
     sd = load_torch_detr(random_state_dict(seed))
@@ -3174,10 +3025,7 @@ def stage1_detr_bf16(seed=0):
     rng = np.random.default_rng(seed)
     images = torch.from_numpy(rng.uniform(-1, 1, (DETR_BENCH_BATCH, h, w, 3))
                               .astype(np.float32)).cuda()
-    sizes = torch.tensor([[float(h), float(w)]] * DETR_BENCH_BATCH, device="cuda")
-    out = {name: chained_img_s(m, images, sizes) for name, m in models.items()}
-
-    seen = {}
+    out, seen = {}, {}
     card = models["bf16"]
     hooks = [card.encoder[0].register_forward_pre_hook(
                  lambda m, args: seen.__setitem__("encoder_in", args[0].dtype)),
@@ -3238,10 +3086,6 @@ def phase_stage1():
         t0 = time.perf_counter()
         a = out["adamixer"] = stage1_adamixer(images, gt)
         a["phase_s"] = time.perf_counter() - t0
-        log(f"[stage1] AdaMixer train step, batch {S1_BATCH}, 832x1344: "
-            f"{[round(x, 3) for x in a['step_ms']]} ms, median {a['median_ms']:.3f} ms; "
-            f"{a['img_per_s']:.3f} img/s; traced step device busy "
-            f"{a['device_busy_ms']:.3f} ms in {a['device_ops']} ops: idle {a['idle_share']:.1%}")
         i = a["init"]
         log(f"[stage1] AdaMixer card vs CPU at init (one image): logits rel "
             f"{max(i['logits_rel']):.2e}, boxes {max(i['boxes_rel']):.2e}, set loss "
@@ -3277,11 +3121,6 @@ def phase_stage1():
         t0 = time.perf_counter()
         d = out["detr_bf16"] = stage1_detr_bf16()
         d["phase_s"] = time.perf_counter() - t0
-        b, f = d["bf16"], d["fp32"]
-        log(f"[stage1] detr_r50_inference_images_per_sec {b['median']:.4f} (bf16, 832x1344, batch "
-            f"{DETR_BENCH_BATCH}, median of {DETR_BENCH_REPEATS} chains of {DETR_BENCH_ITERS} + 1 "
-            f"against 1; spread {b['min']:.4f}-{b['max']:.4f}); float32 (TF32 off) "
-            f"{f['median']:.4f} ({f['min']:.4f}-{f['max']:.4f}) img/s")
         log(f"[stage1] DETR bf16 card vs CPU ({DETR_BENCH_BATCH} images, 6+6 layers), image by "
             f"image, error over the card's bf16-vs-fp32 gap (tol {S1_BF16_FACTOR:g}): logits "
             f"{[round(x['ratio'], 3) for x in d['logits']]}, boxes "
@@ -3481,7 +3320,7 @@ def tools_learning_curve(log_path, work, have_mpl):
     return dict(epochs=epochs, train_map=train, val_map=val)
 
 
-def tools_perf_report(serving_img_s, train_img_s):
+def tools_perf_report(serving_img_s):
     """(e) ``perf_report``: bf16, batch 8, 832x1344."""
     from skghoi_torch.ops.roi_align_cuda import RoIAlignFunction, roi_align_cuda
     from skghoi_torch.tools import perf_report
@@ -3503,8 +3342,7 @@ def tools_perf_report(serving_img_s, train_img_s):
         f"{rep['inference']['first_call_seconds']} s; train {rep['train']['images_per_sec']:.2f} "
         f"img/s, {rep['train']['tflops_per_step']:.4f} TFLOP a step, MFU {rep['train']['mfu']}, "
         f"first call {rep['train']['first_call_seconds']} s; beside phase 4's {serving_img_s:.2f} "
-        f"serving img/s and phase 7's {train_img_s:.2f} train img/s; roi_align launches "
-        f"{launches}, adjoints {adjoints}")
+        f"serving img/s; roi_align launches {launches}, adjoints {adjoints}")
     return rep, launches
 
 
@@ -3635,7 +3473,7 @@ def tools_host(inputs, ckpt, work, have_mpl):
     return out
 
 
-def phase_tools(serving_img_s, train_img_s, cli_train_img_s, eager_ms):
+def phase_tools(serving_img_s, cli_train_img_s, eager_ms):
     """Phase 14: the user and measurement tools on the card, on what phases
     8, 9 and 12 left (or stand-ins when the phase runs alone)."""
     import importlib.util
@@ -3654,8 +3492,7 @@ def phase_tools(serving_img_s, train_img_s, cli_train_img_s, eager_ms):
         out["visualise_detections"] = tools_visualise_detections(inputs["detect"],
                                                                  inputs["detect_cache"], work)
         out["learning_curve"] = tools_learning_curve(inputs["train_hicodet.log"], work, have_mpl)
-        out["perf_report"], out["perf_report_launches"] = tools_perf_report(serving_img_s,
-                                                                            train_img_s)
+        out["perf_report"], out["perf_report_launches"] = tools_perf_report(serving_img_s)
         out["stage_profile"] = tools_stage_profile(eager_ms)
         out["bench_io"] = tools_bench_io(root, cli_train_img_s)
         out["host"] = tools_host(inputs, ckpt, work, have_mpl)
@@ -3712,8 +3549,6 @@ def profile_forward(model, batch, ovm, profile_dir, request_s):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", default=None, help="directory for a torch.profiler trace")
-    ap.add_argument("--baseline-source", default=None,
-                    help="another roi_align.cu with the same C interface, timed in turns beside this one")
     ap.add_argument("--ddp-worker", nargs=2, metavar=("KIND", "OUT"), default=None,
                     help="phase 11's worker: run train_hicodet (hoi) or train_kge (kge) with the "
                          "arguments after --, write its results to OUT")
@@ -3739,7 +3574,7 @@ def run_phases(args) -> int:
     """Phases 1-16 in order; the result lines last."""
     from skghoi_torch.entry import make_batch
     from skghoi_torch.models.interaction_head import filter_detections
-    from skghoi_torch.ops.roi_align_cuda import RoIAlignKernel, roi_align_cuda
+    from skghoi_torch.ops.roi_align_cuda import roi_align_cuda
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3748,23 +3583,17 @@ def run_phases(args) -> int:
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
-    baseline = RoIAlignKernel(Path(args.baseline_source)) if args.baseline_source else None
-    for k in (roi_align_cuda, baseline) if baseline else (roi_align_cuda,):
-        k.build()
-        log(f"[build] {k.source} -> {k.build_dir.name}/ in {k.build_seconds:.2f} s")
-        for line in k.build_log.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {line.strip()}")
+    build_logged(roi_align_cuda, "roi_align")
 
     b = make_batch(BATCH, CANVAS, device="cuda")
     main_boxes = filter_detections(b.det_boxes, b.det_labels, b.det_scores, b.det_valid).boxes
     main_boxes = main_boxes.contiguous()
-    kernel = phase_kernel(main_boxes, baseline)
+    kernel = phase_kernel(main_boxes)
     phase_parity()
     kernel["launches"], serving_img_s = phase_main(REQUESTS, args.profile)
     adjoint = phase_adjoint(main_boxes)
     phase_train_parity()
-    train = phase_train(args.profile)
+    train = phase_train()
     kernel["launches_train"] = train["launches"]
     adjoint["launches"] = train["adjoint_launches"]  # the training main path's
     cli = phase_cli()
@@ -3788,8 +3617,7 @@ def run_phases(args) -> int:
     kernel["share_of_bound_frcnn_spread"] = spread["bound_ms"] / spread["cold_ms"]
     stage1 = phase_stage1()
     kernel["launches_adamixer_chain"] = stage1["chain"]["launches"]
-    tools = phase_tools(serving_img_s, train["img_per_s"], cli["train_img_per_s"],
-                        kernel["eager_ms"])
+    tools = phase_tools(serving_img_s, cli["train_img_per_s"], kernel["eager_ms"])
     kernel["launches_extract"] = tools["extract"]["launches"]
     kernel["launches_demo"] = tools["demo"]["launches"]
     kernel["launches_perf_report"] = tools["perf_report_launches"]

@@ -5,8 +5,7 @@ go through ``chip_smoke.stage1_detr_bf16`` with its factor lifted: per image
 and output, the error of the bfloat16 model on the card against the
 bfloat16 model on the CPU, the card's own bfloat16-against-float32 gap, and
 their ratio, which ``S1_BF16_FACTOR`` bounds.  One JSON line a seed, then
-the largest and median ratio.  Needs a CUDA card; the first seed is timed
-as the phase times it.
+the largest and median ratio.  Needs a CUDA card.
 
     python3 scripts/detr_bf16_readings.py [SEEDS]
 """
@@ -32,17 +31,13 @@ def main(seeds: int = 6) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     print(cs.card_line(), flush=True)
     cs.S1_BF16_FACTOR = math.inf
-    timed = cs.chained_img_s
     rows = []
     for seed in range(seeds):
-        cs.chained_img_s = timed if seed == 0 else (lambda *a, **k: {})
         t0 = time.perf_counter()
         d = cs.stage1_detr_bf16(seed)
         row = dict(seed=seed, s=time.perf_counter() - t0, cpu_s=d["cpu_s"], dtypes=d["dtypes"],
                    **{k: [(x["err"], x["gap"], x["ratio"]) for x in d[k]]
                       for k in ("logits", "boxes")})
-        if seed == 0:
-            row.update(bf16=d["bf16"], fp32=d["fp32"])
         rows.append(row)
         print(json.dumps(row), flush=True)
     ratios = sorted(r[2] for row in rows for k in ("logits", "boxes") for r in row[k])

@@ -1,23 +1,21 @@
 #!/bin/bash
-# Serving and training throughput of two checkouts of the port, in turns on
-# one card:
-#   scripts/port_eval_ab.sh OTHER_CHECKOUT [REQUESTS] [TRAIN_STEPS]
+# Serving throughput of two checkouts of the port, in turns on one card:
+#   scripts/port_eval_ab.sh OTHER_CHECKOUT [REQUESTS]
 # runs chip_smoke.py's main path (phase 4: the bf16 SCG at 832x1344, batch 8)
-# and its training main path (phase 7: the bf16 train step, same shape) for
-# OTHER_CHECKOUT, this checkout, this checkout, OTHER_CHECKOUT, each in a
+# for OTHER_CHECKOUT, this checkout, this checkout, OTHER_CHECKOUT, each in a
 # fresh process, and prints each run's per-request times, img/s, profile and
-# stage times, then its TRAIN_STEPS (default 5) per-step times and train
-# img/s, then one traced train step after three untimed ones ([ab-trace]:
-# its wall ms, device busy ms and ops, idle share, and the host's CUDA
-# runtime calls by time).  OTHER_CHECKOUT is e.g. `git archive` of the
-# parent unpacked into a directory that .gitignore lists.
+# stage times, then one traced bf16 train step after three untimed ones
+# ([ab-trace]: its wall ms, device busy ms and ops, idle share, and the
+# host's CUDA runtime calls by time).  The train step's rate is the
+# benchmark cell's: `python3 -m hoibench.run --workload scg_r50.train_b8`.
+# OTHER_CHECKOUT is e.g. `git archive` of the parent unpacked into a
+# directory that .gitignore lists.
 set -euo pipefail
 other=$(cd "$1" && pwd)
 here=$(cd "$(dirname "$0")/.." && pwd)
 requests=${2:-20}
-train_steps=${3:-5}
 run() {
-  (cd "$1" && REQUESTS="$requests" TRAIN_STEPS="$train_steps" python3 - <<'PY'
+  (cd "$1" && REQUESTS="$requests" python3 - <<'PY'
 import os
 import sys
 
@@ -32,8 +30,6 @@ torch.backends.cuda.matmul.allow_tf32 = False
 roi_align_cuda.build()
 print(f"[ab] {os.getcwd()}", flush=True)
 chip_smoke.phase_main(int(os.environ["REQUESTS"]), os.path.join(os.getcwd(), "_ab_profile"))
-chip_smoke.TRAIN_STEPS = int(os.environ["TRAIN_STEPS"])
-chip_smoke.phase_train(None)
 
 import time  # noqa: E402
 

@@ -5,9 +5,11 @@ The gather reference ``multiscale_roi_align``, the exact Pallas path
 in Pallas interpret mode) on the fixtures of ``test_pallas_roi_align.py``,
 including the 832x1344 window-overflow boxes; rtol/atol 1e-4.  The CUDA
 kernel itself is held against this plain version on the card by
-``chip_smoke.py``; here, its wrapper's refusals and the box cases that
-``chip_smoke.py`` builds for it.
+``chip_smoke.py``; here, its wrapper's refusals, the box cases that
+``chip_smoke.py`` builds for it and the bounds it times the kernels against.
 """
+
+import types
 
 import chip_smoke
 import jax
@@ -16,12 +18,17 @@ import numpy as np
 import pytest
 import torch
 
+from hoibench.roofline import adjoint_ops, roi_forward_bound_s
 from skghoi_tpu.ops.pallas_roi_align import pallas_multiscale_roi_align, roi_align_exact
 from skghoi_tpu.ops.roi_align import fpn_level_assignment as jax_levels
 from skghoi_tpu.ops.roi_align import multiscale_roi_align as jax_gather
+from skghoi_torch.entry import make_batch
+from skghoi_torch.models.interaction_head import filter_detections
 from skghoi_torch.ops import roi_align as plain
+from skghoi_torch.ops import roi_align_cuda as roi_align_cuda_module
 from skghoi_torch.ops.roi_align import fpn_level_assignment, multiscale_roi_align
-from skghoi_torch.ops.roi_align_cuda import RoIAlignKernel, roi_align_auto, roi_align_cuda
+from skghoi_torch.ops.roi_align_cuda import (ENTRY_POINTS, RoIAlignKernel, roi_align_auto,
+                                             roi_align_cuda)
 
 torch.set_num_threads(2)
 
@@ -147,6 +154,18 @@ def test_kernel_refuses_before_building(kind, match, tmp_path):
     assert kernel.launches == 0 and kernel._lib is None and not any(tmp_path.iterdir())
 
 
+def test_kernel_build_raises_on_a_missing_entry_point(monkeypatch, tmp_path):
+    # A library without one of the four entry points is refused when it loads,
+    # not on the first launch that would need it.
+    lib = types.SimpleNamespace(**{name: types.SimpleNamespace() for name in ENTRY_POINTS
+                                   if name != "skghoi_roi_align_bwd_bf16"})
+    monkeypatch.setattr(roi_align_cuda_module, "build_library", lambda *args: (lib, ""))
+    kernel = RoIAlignKernel(build_dir=tmp_path)
+    with pytest.raises(AttributeError, match="skghoi_roi_align_bwd_bf16"):
+        kernel.build()
+    assert kernel._lib is None
+
+
 def test_plain_division_matches_python_number_on_cpu(monkeypatch):
     # The plain version divides by a float32 tensor on the input's device (so
     # that CUDA divides instead of multiplying by the reciprocal); on the CPU
@@ -171,6 +190,35 @@ def test_chip_smoke_grid28_boxes_reach_the_largest_grid():
                              .astype(np.float32))
     _, rows, cols = chip_smoke.grid_shapes(boxes, hw)
     assert int(rows.max()) <= 28 and int(cols.max()) <= 28
+
+
+# The main path's boxes (phase 2: ``make_batch(BATCH, CANVAS)`` through
+# ``filter_detections``, bf16 maps at C=256): the forward's bound, its distinct
+# cells and the adjoint's bytes and multiply-adds, as ``chip_smoke.py`` counted
+# them itself before it read ``hoibench.roofline``.
+MAIN_FWD_BOUND_MS = 0.007352988656716418
+MAIN_FWD_CELLS = 36341
+MAIN_ADJ_BYTES = 386_216_640
+MAIN_ADJ_BYTES_MS = 0.11528854925373135
+MAIN_ADJ_OPS = 47_149_568
+
+
+@pytest.mark.parametrize("direction", ["forward", "adjoint"])
+def test_chip_smoke_bounds_at_the_main_path(direction):
+    b = make_batch(chip_smoke.BATCH, chip_smoke.CANVAS, device="cpu")
+    boxes = filter_detections(b.det_boxes, b.det_labels, b.det_scores, b.det_valid).boxes
+    bsz, n = boxes.shape[:2]
+    shapes = [(bsz, chip_smoke.CANVAS[0] // s, chip_smoke.CANVAS[1] // s, 256)
+              for s in (4, 8, 16, 32)]
+    if direction == "forward":
+        got = roi_forward_bound_s(shapes, boxes, 2, chip_smoke.HBM_BYTES_PER_S,
+                                  chip_smoke.FP32_FLOPS_PER_S) * 1e3
+        cell_bytes = MAIN_FWD_CELLS * 256 * 2 + bsz * n * (49 * 256 * 2 + 16 + 4)
+        assert got == MAIN_FWD_BOUND_MS == cell_bytes / chip_smoke.HBM_BYTES_PER_S * 1e3
+    else:
+        bytes_ms, _, n_bytes, _ = chip_smoke.adjoint_bounds(shapes, n, 2)
+        assert (n_bytes, bytes_ms) == (MAIN_ADJ_BYTES, MAIN_ADJ_BYTES_MS)
+        assert adjoint_ops(shapes, boxes) == MAIN_ADJ_OPS
 
 
 def test_chip_smoke_map_edge_boxes_cover_every_edge_and_level():

@@ -16,6 +16,8 @@ any helper of its module (by AST): on the card it runs the adjoint kernel.
 Every ``span`` of the port names an entry of ``utils.profiling.SPANS`` and
 each entry is opened; none sits in a loop under ``ops/``; only
 ``utils/profiling.py`` calls ``record_function`` (by AST).
+``chip_smoke.py`` keeps no copy of the RoIAlign bounds that
+``hoibench/roofline.py`` computes, and imports them from there (by AST).
 """
 
 import ast
@@ -80,6 +82,33 @@ def test_sources_scanned():
             "stage_profile.py"} <= names
     assert ROOT / "skghoi_torch" / "utils" / "__init__.py" in SOURCES
     assert ROOT / "skghoi_torch" / "detect" / "__init__.py" in SOURCES
+
+
+# What ``hoibench/roofline.py`` computes; ``chip_smoke.py`` reads it from there.
+YARDSTICK = {"sample_cells", "roi_bound_ms", "adjoint_kernel_ops"}
+
+
+def _yardstick_copies(source):
+    """(the yardstick's names that ``source`` defines, whether it imports
+    ``hoibench.roofline``)."""
+    tree = ast.parse(source)
+    defined = {n.name for n in ast.walk(tree) if isinstance(n, ast.FunctionDef)} & YARDSTICK
+    imports = any((isinstance(n, ast.ImportFrom) and n.module == "hoibench.roofline")
+                  or (isinstance(n, ast.Import) and "hoibench.roofline" in [a.name for a in n.names])
+                  for n in ast.walk(tree))
+    return sorted(defined), imports
+
+
+def test_chip_smoke_reads_the_benchmark_yardstick():
+    """``chip_smoke.py`` keeps no copy of the bounds the benchmark counts."""
+    assert _yardstick_copies((ROOT / "chip_smoke.py").read_text()) == ([], True)
+
+
+def test_yardstick_rule_sees_what_it_checks():
+    copy = "def roi_bound_ms(maps, boxes):\n    def sample_cells(b, hw):\n        pass\n"
+    assert _yardstick_copies(copy) == (["roi_bound_ms", "sample_cells"], False)
+    assert _yardstick_copies("import hoibench.roofline\n") == ([], True)
+    assert _yardstick_copies("from hoibench.roofline import sample_cells\n") == ([], True)
 
 
 @pytest.mark.parametrize("build", [
